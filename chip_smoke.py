@@ -10,8 +10,8 @@ mesh extraction, ``generate_mc`` at N=256 with both MeshUDF and CAP, on an
 order, each printing its seconds:
 
   1. device   — needs CUDA; prints the nvidia-smi name and power limit;
-  2. build    — nvcc (K1) and g++ (sign voting) in parallel, into the
-                package's ignored build directory;
+  2. build    — nvcc (K1), then g++ (sign voting), into the package's
+                ignored build directory;
   3. kernel   — K1 vs ``vgh_reference`` on 65,536 points of a random-init
                 8x256 net, with the tolerances of the JAX package's Pallas
                 test (f 1e-5, g 1e-4, h6 5e-3, absolute), and its times;
@@ -22,7 +22,9 @@ order, each printing its seconds:
                 algorithm "both", N=256; the K1 launch count of this run,
                 the stage times, band sizes, face counts, and the Chamfer-L1
                 of each mesh against 100k points of the sphere;
-  6. timing   — K1 and its plain version at the shape the slice gave K1.
+  6. timing   — K1 against its plain version, element by element, and both
+                against the plain version in float64, at the shape the
+                slice gave K1; then their times.
 
 Then a ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}`` line.
 Any failed phase raises, and the script exits non-zero without the last
@@ -34,7 +36,6 @@ import os
 import subprocess
 import sys
 import tempfile
-import threading
 import time
 
 import numpy as np
@@ -44,6 +45,12 @@ import diffudf_tpu_torch  # noqa: F401  (fails at once outside a checkout)
 
 # Tolerances of tests/test_pallas.py::TestPallasVGH::test_matches_reference.
 TOL = {"f": 1e-5, "g": 1e-4, "h6": 5e-3}
+# At the slice's shape the fitted net's outputs reach several hundred, and
+# float32 sums taken in another order differ in proportion to the terms:
+# phase 6 adds RTOL * |plain| to each element's TOL, and bounds K1's distance
+# from the float64 plain version by WITNESS times the float32 one's.
+RTOL = 1e-4
+WITNESS = 2.0
 # Phase 5 gates.  Chamfer-L1 is the sum of the two directional mean L1
 # nearest-neighbour distances, 100k samples a side; the bound was set after
 # the first run on an H100 measured 0.0119 for both meshes (PERF.md).
@@ -128,25 +135,13 @@ def build_phase():
     from diffudf_tpu_torch.native import udf_mc
     from diffudf_tpu_torch.ops import vgh
 
-    results, errors = {}, []
-
-    def one(name, fn):
-        t0 = time.perf_counter()
-        try:
-            results[name] = fn()
-        except RuntimeError as exc:
-            errors.append(exc)
-        print(f"[build] {name}: {time.perf_counter() - t0:.2f} s", flush=True)
-
-    threads = [threading.Thread(target=one, args=a)
-               for a in (("vgh (nvcc)", vgh.build), ("udf_mc (g++)", udf_mc.build))]
-    for t in threads:
-        t.start()
-    for t in threads:
-        t.join()
-    if errors:
-        raise errors[0]
-    with open(results["vgh (nvcc)"][:-3] + ".log") as fh:
+    t0 = time.perf_counter()
+    lib = vgh.build()
+    print(f"[build] vgh (nvcc): {time.perf_counter() - t0:.2f} s", flush=True)
+    t0 = time.perf_counter()
+    udf_mc.build()
+    print(f"[build] udf_mc (g++): {time.perf_counter() - t0:.2f} s", flush=True)
+    with open(lib[:-3] + ".log") as fh:
         for line in fh:
             if "registers" in line or "spill" in line:
                 print(f"[build] ptxas: {line.strip()}")
@@ -303,46 +298,69 @@ def slice_phase(tmp, model_path):
 
 @phase("timing")
 def timing_phase(model_path, n_points):
-    """K1 and its plain version at the slice's K1 shape (n_points, 3)."""
+    """K1 and its plain version at the slice's K1 shape (n_points, 3).
+
+    K1 is held to the plain version element by element, |K1 - plain| <=
+    TOL + RTOL * |plain|.  The plain version in float64 is a second witness:
+    on each component K1's largest and RMS distance from it may be at most
+    WITNESS times the float32 plain version's."""
     from diffudf_tpu_torch.fields.siren import SirenSpec
     from diffudf_tpu_torch.ops import vgh
     from diffudf_tpu_torch.train.checkpoint import load_params
 
     spec = SirenSpec(hidden=HIDDEN)
     params = load_params(model_path, device="cuda")
+    params64 = [{k: v.double() for k, v in p.items()} for p in params]
     x = torch.as_tensor(
         np.random.default_rng(3).uniform(-1, 1, (n_points, 3)).astype(np.float32),
         device="cuda")
 
-    def plain():
+    def plain(p=params, x=x):
         # chunked so the (10 M, 256) carries of a large band fit in memory
-        parts = [vgh.vgh_reference(params, spec, c) for c in x.split(131072)]
-        return tuple(torch.cat(p) for p in zip(*parts))
+        parts = [vgh.vgh_reference(p, spec, c) for c in x.split(131072)]
+        return tuple(torch.cat(q) for q in zip(*parts))
 
     got = vgh.vgh(params, spec, x)
     torch.cuda.synchronize()
-    want = plain()
-    err = max_errors(got, want)
-    # The fitted net's outputs are larger than the random-init net's, and
-    # float32 sums taken in another order differ in proportion: each
-    # tolerance is scaled by the output's largest magnitude where it is > 1.
-    scale = {k: max(1.0, float(w.abs().max())) for k, w in zip(("f", "g", "h6"), want)}
-    del want
-    print(f"[timing] largest magnitudes of the plain version: {scale}")
-    for k, v in err.items():
-        if not v <= TOL[k] * scale[k]:
-            raise AssertionError(
-                f"K1 disagrees with vgh_reference on {k}: {v} > {TOL[k]} * {scale[k]}")
+    want, exact = plain(), plain(params64, x.double())
+    print(f"[timing] {n_points} points, {n_points % 8} in the masked last tile of 8")
+    report, failed = {}, []
+    for k, a, b, e in zip(("f", "g", "h6"), got, want, exact):
+        err = (a - b).abs()
+        limit = TOL[k] + RTOL * b.abs()
+        e_k1, e_plain = (a.double() - e).abs(), (b.double() - e).abs()
+        r = {
+            "max_err": err.max(), "rms_plain": b.square().mean().sqrt(),
+            "max_plain": b.abs().max(), "worst_err/limit": (err / limit).max(),
+            "f64_max": (e_k1.max(), e_plain.max()),
+            "f64_rms": (e_k1.square().mean().sqrt(), e_plain.square().mean().sqrt()),
+        }
+        report[k] = r = {n: (tuple(map(float, v)) if isinstance(v, tuple) else float(v))
+                         for n, v in r.items()}
+        print(f"[timing] {k}: max |K1 - plain| {r['max_err']:.3e}, limit {TOL[k]} + "
+              f"{RTOL} |plain| (plain: RMS {r['rms_plain']:.3e}, max {r['max_plain']:.3e}), "
+              f"worst err/limit {r['worst_err/limit']:.3f}; vs float64, K1 / plain: "
+              f"max {r['f64_max'][0]:.3e} / {r['f64_max'][1]:.3e}, "
+              f"RMS {r['f64_rms'][0]:.3e} / {r['f64_rms'][1]:.3e}")
+        if not r["worst_err/limit"] <= 1:
+            failed.append(f"{k}: K1 outside {TOL[k]} + {RTOL} |plain| of the plain version")
+        for n in ("f64_max", "f64_rms"):
+            if not r[n][0] <= WITNESS * r[n][1]:
+                failed.append(f"{k}: K1's {n} distance from float64 {r[n][0]} > "
+                              f"{WITNESS} x the float32 plain version's {r[n][1]}")
+    del want, exact
+    if failed:
+        raise AssertionError("; ".join(failed))
     ms = cuda_ms(lambda: vgh.vgh(params, spec, x), 20)
     plain_ms = cuda_ms(plain, 3)
     flop_ms = 1e3 * vgh_flops(n_points, HIDDEN) / PEAK_FP32_FLOPS
     byte_ms = 1e3 * vgh_bytes(n_points, HIDDEN) / PEAK_BYTES_PER_S
     print(f"[timing] {n_points} points: K1 {ms:.3f} ms (median of 20), plain "
           f"{plain_ms:.3f} ms, bound {max(flop_ms, byte_ms):.3f} ms "
-          f"(FP32 {flop_ms:.3f}, bytes {byte_ms:.3f}); max abs err {err}")
+          f"(FP32 {flop_ms:.3f}, bytes {byte_ms:.3f})")
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": max(flop_ms, byte_ms),
-            "bound_by": "operations" if flop_ms >= byte_ms else "bytes", "max_err": err,
-            "scale": scale}
+            "bound_by": "operations" if flop_ms >= byte_ms else "bytes",
+            "max_err": {k: r["max_err"] for k, r in report.items()}}
 
 
 def main():
