@@ -3,15 +3,18 @@
 
     python3 chip_smoke.py
 
-Drives ``diffudf_tpu_torch`` alone (no JAX, no ``diffudf_tpu``) through
-mesh extraction, ``generate_mc`` at N=256 with both MeshUDF and CAP, on an
-8x256 SIREN fitted in process to a sphere, and holds the fused
-(f, grad f, Hessian) kernel K1 against its plain torch version.  Phases, in
-order, each printing its seconds:
+Drives ``diffudf_tpu_torch`` alone (no JAX, no ``diffudf_tpu``) through its
+two paths: mesh extraction, ``generate_mc`` at N=256 with both MeshUDF and
+CAP on an 8x256 SIREN fitted in process to a sphere; and training,
+``cli.train`` on the point-cloud torus recipe (8x256, batch 30,000, 3000
+epochs).  It holds every kernel of those paths against its plain torch
+version: K1 (f, grad f, Hessian), K2 (its VJP), K3a (f, grad f) and K3b
+(its VJP).  Phases, in order, each printing its seconds:
 
   1. device   — needs CUDA; prints the nvidia-smi name and power limit;
-  2. build    — nvcc (K1), then g++ (sign voting), into the package's
-                ignored build directory;
+  2. build    — nvcc (K1; K2; K3a and K3b) and g++ (sign voting), all
+                started together, into the package's ignored build
+                directory, with each ptxas register report;
   3. kernel   — K1 vs ``vgh_reference`` on 65,536 points of a random-init
                 8x256 net, with the tolerances of the JAX package's Pallas
                 test (f 1e-5, g 1e-4, h6 5e-3, absolute), and its times;
@@ -24,13 +27,29 @@ order, each printing its seconds:
                 of each mesh against 100k points of the sphere;
   6. timing   — K1 against its plain version, element by element, and both
                 against the plain version in float64, at the shape the
-                slice gave K1; then their times.
+                slice gave K1; then their times;
+  7. train    — preprocesses data/demo/torus.obj (100k points) and runs
+                ``diffudf_tpu_torch.cli.train.main`` on the recipe of
+                results/results_demo_pc.csv; gates: K1, K2, K3a and K3b
+                each launched once per s1 step (K1 once more, by the final
+                extraction), finite losses, the s1 loss of the last 50 s1
+                epochs below that of the first 50, and the Chamfer-L1 of
+                both final meshes against the 100k-point cloud within the
+                torus protocol floor; prints s1 and s2 steps/s beside the
+                original DiffUDF's 7.54;
+  8. training kernels — K2, K3a and K3b against their plain versions,
+                element by element, and against the plain versions in
+                float64, on the trained net and a batch of its sampler at
+                the slice's shapes (9,990 surface rows for K2, 19,980
+                off-surface rows for K3a and K3b, the loss's own
+                cotangents); then their times and bounds.
 
 Then a ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}`` line.
 Any failed phase raises, and the script exits non-zero without the last
 line.  Files go to a temporary directory and the build directory only.
 """
 
+import concurrent.futures
 import json
 import os
 import subprocess
@@ -63,6 +82,28 @@ PEAK_BYTES_PER_S = 3.35e12
 RADIUS, ALPHA, N_GRID = 0.7, 10.0, 256
 HIDDEN = (256,) * 8
 
+# Phase 7: the recipe of results/results_demo_pc.csv (diffudf_tpu/cli/
+# quantitative.py DEFAULT_CONFIG with onlyPCloud), on the torus.
+REPO = os.path.dirname(os.path.abspath(__file__))
+RECIPE = {
+    "num_epochs": 3000, "s1_epochs": 2000, "warmup_epochs": 1000,
+    "batch_size": 30000, "sampling_percentiles": [0.333, 0.666],
+    "batches_per_epoch": 1, "epochs_to_checkpoint": 8001, "gt_mode": "tanh",
+    "loss_s1_weights": [1e4, 1e4, 1e4, 1e3], "loss_s2_weights": [1e5, 1e5],
+    "alpha": 10, "optimizer": {"type": "adam", "lr_s1": 1e-5, "lr_s2": 1e-7},
+    "network": {"hidden_layer_nodes": [256] * 8, "w0": 30, "pretrained_dict": "None"},
+    "resolution": 256, "onlyPCloud": True,
+}
+# The torus protocol floor (results/protocol_floors_demo.json) for the
+# Chamfer-L1 of each final mesh's vertices against the 100k-point cloud,
+# nearest neighbours under the L1 norm (eval/chamfer.py, norm=1).
+MAX_TORUS_CHAMFER_L1 = 0.011975
+BASELINE_STEPS_PER_S = 7.54  # original DiffUDF, 3000 epochs in 398 s (BASELINE.md)
+# Phase 8: each gradient element within GTOL * max(max |plain|, 1) +
+# RTOL * |plain| of the plain version; GTOL is the Pallas gradcheck's
+# (tests/test_pallas.py: 2e-5 for the vgh VJP, 1e-5 for the vg VJP).
+GTOL = {"K2": 2e-5, "K3b": 1e-5}
+
 
 def phase(name):
     """Decorator: run a phase, print its seconds, let any failure propagate."""
@@ -93,6 +134,20 @@ def vgh_bytes(n_points, hidden):
     h, n_mm = hidden[0], len(hidden) - 1
     weights = 4 * (4 * h + n_mm * (h * h + h) + h + 1)
     return n_points * 4 * (3 + 16) + weights
+
+
+def siren_kernel_bound(n_points, hidden, rows, products, row_bytes, weight_copies):
+    """(bound ms, "operations" or "bytes") of a SIREN kernel: ``rows`` carry
+    rows a point through ``products`` (h, h) products per hidden layer plus
+    the first layer and the head, against ``row_bytes`` of input and output
+    a point and ``weight_copies`` times the weights (read, and for a VJP
+    the gradient written)."""
+    h, n_mm = hidden[0], len(hidden) - 1
+    flops = n_points * (2 * 3 * h + n_mm * products * rows * 2 * h * h + rows * 2 * h)
+    weights = 4 * (4 * h + n_mm * (h * h + h) + h + 1)
+    nbytes = n_points * row_bytes + weight_copies * weights
+    flop_ms, byte_ms = 1e3 * flops / PEAK_FP32_FLOPS, 1e3 * nbytes / PEAK_BYTES_PER_S
+    return max(flop_ms, byte_ms), ("operations" if flop_ms >= byte_ms else "bytes")
 
 
 def cuda_ms(fn, reps):
@@ -132,19 +187,27 @@ def device_phase():
 
 @phase("build")
 def build_phase():
+    """Every native library at once: one compiler process per source."""
     from diffudf_tpu_torch.native import udf_mc
-    from diffudf_tpu_torch.ops import vgh
+    from diffudf_tpu_torch.ops import vg, vgh
 
-    t0 = time.perf_counter()
-    lib = vgh.build()
-    print(f"[build] vgh (nvcc): {time.perf_counter() - t0:.2f} s", flush=True)
-    t0 = time.perf_counter()
-    udf_mc.build()
-    print(f"[build] udf_mc (g++): {time.perf_counter() - t0:.2f} s", flush=True)
-    with open(lib[:-3] + ".log") as fh:
-        for line in fh:
-            if "registers" in line or "spill" in line:
-                print(f"[build] ptxas: {line.strip()}")
+    builds = {"vgh (nvcc, K1)": vgh.build, "vgh_bwd (nvcc, K2)": vgh.build_bwd,
+              "vg (nvcc, K3a + K3b)": vg.build, "udf_mc (g++)": udf_mc.build}
+
+    def timed(fn):
+        t0 = time.perf_counter()
+        return fn(), time.perf_counter() - t0
+
+    with concurrent.futures.ThreadPoolExecutor(len(builds)) as pool:
+        futures = {name: pool.submit(timed, fn) for name, fn in builds.items()}
+        done = {name: f.result() for name, f in futures.items()}
+    for name, (lib, secs) in done.items():
+        print(f"[build] {name}: {secs:.2f} s", flush=True)
+        if "nvcc" in name:
+            with open(lib[:-3] + ".log") as fh:
+                for line in fh:
+                    if "registers" in line or "spill" in line:
+                        print(f"[build]   ptxas: {line.strip()}")
 
 
 @phase("kernel")
@@ -363,28 +426,226 @@ def timing_phase(model_path, n_points):
             "max_err": {k: r["max_err"] for k, r in report.items()}}
 
 
+def losses_table(path):
+    """losses.csv -> {column: float array, NaN where the stage lacks it}."""
+    with open(path) as fh:
+        rows = [line.rstrip("\n").split(";") for line in fh]
+    return {name: np.array([float(r[i]) if r[i] else np.nan for r in rows[1:]])
+            for i, name in enumerate(rows[0])}
+
+
+@phase("train")
+def train_phase(tmp):
+    """The torus recipe through cli.train.main; -> what phase 8 needs and
+    the kernel launch counts of this run."""
+    from diffudf_tpu_torch.cli import preprocess, train
+    from diffudf_tpu_torch.data.mesh_io import load_point_cloud
+    from diffudf_tpu_torch.ops import vg, vgh
+
+    data_dir = os.path.join(tmp, "demo")
+    t0 = time.perf_counter()
+    preprocess.preprocess_mesh(data_dir, os.path.join(REPO, "data", "demo", "torus.obj"), 100000)
+    print(f"[train] preprocess (100k points): {time.perf_counter() - t0:.2f} s", flush=True)
+    cfg = dict(RECIPE, dataset=os.path.join(data_dir, "torus"), experiment_name="torus",
+               checkpoint_path=os.path.join(tmp, "runs"))
+    cfg_path = os.path.join(tmp, "train_cfg.json")
+    with open(cfg_path, "w") as fh:
+        json.dump(cfg, fh)
+
+    vgh.launches = vgh.bwd_launches = vg.launches = vg.bwd_launches = 0
+    (pipeline_s, meshes, state), stats = train.main([cfg_path])
+    launches = {"K1": vgh.launches, "K2": vgh.bwd_launches, "K3a": vg.launches,
+                "K3b": vg.bwd_launches}
+
+    n_s1, n_s2 = stats["s1_steps"], stats["s2_steps"]
+    s1_rate, s2_rate = n_s1 / stats["s1_s"], n_s2 / stats["s2_s"]
+    print(f"[train] oracle {stats['oracle_s']:.2f} s, s1 {stats['s1_s']:.2f} s for {n_s1} "
+          f"steps ({s1_rate:.2f} steps/s), s2 {stats['s2_s']:.2f} s for {n_s2} steps "
+          f"({s2_rate:.2f} steps/s), all steps {(n_s1 + n_s2) / stats['train_s']:.2f} steps/s "
+          f"(the original DiffUDF: {BASELINE_STEPS_PER_S} steps/s); pipeline "
+          f"{pipeline_s:.2f} s; extraction {json.dumps(stats['mesh'])}")
+    print(f"[train] kernel launches in this run: {launches}")
+    extraction_k1 = 1 if stats["mesh"]["dirs_points"] > 0 else 0
+    want = {"K1": n_s1 + extraction_k1, "K2": n_s1, "K3a": n_s1, "K3b": n_s1}
+    if launches != want:
+        raise AssertionError(f"launches {launches} != once per s1 step {want} "
+                             f"(K1 plus {extraction_k1} by the final extraction)")
+
+    logs = losses_table(os.path.join(tmp, "runs", "torus", "losses.csv"))
+    total = logs["total"]
+    if len(total) != RECIPE["num_epochs"] or not np.isfinite(total).all():
+        raise AssertionError("losses.csv lacks epochs or holds a non-finite total")
+    for name, col in logs.items():
+        if not np.isfinite(col[~np.isnan(col)]).all():
+            raise AssertionError(f"non-finite {name} in losses.csv")
+    s1 = total[:RECIPE["s1_epochs"]]
+    first, last = float(s1[:50].mean()), float(s1[-50:].mean())
+    print(f"[train] s1 total loss: first 50 epochs {first:.3f}, last 50 {last:.3f}; "
+          f"s2 total loss: last 50 {float(total[-50:].mean()):.3f}")
+    if not last < first:
+        raise AssertionError(f"the s1 loss did not fall: {first} -> {last}")
+
+    cloud = load_point_cloud(cfg["dataset"] + "_pc.ply").points
+    chamfer = {}
+    for name, m in zip(("MU", "CAP"), meshes):
+        v = np.asarray(m.vertices, np.float64)
+        if len(m.faces) == 0 or not np.isfinite(v).all():
+            raise AssertionError(f"{name} mesh is empty or not finite")
+        chamfer[name] = chamfer_l1(v, cloud)
+    print(f"[train] Chamfer-L1 of the mesh vertices vs the 100k-point cloud: "
+          f"MU {chamfer['MU']:.6f}, CAP {chamfer['CAP']:.6f} (bound {MAX_TORUS_CHAMFER_L1}; "
+          f"faces MU {len(meshes[0].faces)}, CAP {len(meshes[1].faces)})")
+    for name, c in chamfer.items():
+        if not c <= MAX_TORUS_CHAMFER_L1:
+            raise AssertionError(f"{name} Chamfer-L1 {c} > {MAX_TORUS_CHAMFER_L1}")
+    params = [{k: v.detach().contiguous() for k, v in layer.items()}
+              for layer in state.best_params]
+    return {"params": params, "cfg_path": cfg_path, "launches": launches,
+            "s1_steps_per_s": s1_rate, "s2_steps_per_s": s2_rate, "chamfer": chamfer}
+
+
+def witness(name, got, want, exact, failed):
+    """Print and gate got's max and RMS distance from the float64 exact
+    values against WITNESS times the float32 plain version's."""
+    e_k, e_p = (got.double() - exact).abs(), (want.double() - exact).abs()
+    mx, rms = (float(e_k.max()), float(e_p.max())), (
+        float(e_k.square().mean().sqrt()), float(e_p.square().mean().sqrt()))
+    print(f"[train-kernels] {name} vs float64, kernel / plain: max {mx[0]:.3e} / "
+          f"{mx[1]:.3e}, RMS {rms[0]:.3e} / {rms[1]:.3e}")
+    for what, (k, p) in (("max", mx), ("RMS", rms)):
+        if not k <= WITNESS * p:
+            failed.append(f"{name}: kernel's {what} distance from float64 {k} > "
+                          f"{WITNESS} x the plain version's {p}")
+
+
+@phase("training kernels")
+def train_kernel_phase(params, cfg_path):
+    """K2, K3a and K3b against their plain versions on the trained net and a
+    batch of the run's sampler, with the s1 loss's own cotangents."""
+    from diffudf_tpu_torch.cli import train
+    from diffudf_tpu_torch.config import TrainConfig
+    from diffudf_tpu_torch.fields.siren import flatten_params
+    from diffudf_tpu_torch.ops import vg, vgh
+    from diffudf_tpu_torch.train.losses import loss_s1
+
+    cfg = TrainConfig.from_json(cfg_path)
+    spec = cfg.network.to_spec()
+    sampler, _ = train.build_sampler(cfg)  # the run's oracle cache: no rebuild
+    pts, nrm, sdf = sampler.sample(torch.Generator(device="cuda").manual_seed(7))
+    n_on = sampler.sizes.on_surface
+    surf, off = pts[:n_on].contiguous(), pts[n_on:].contiguous()
+    outs = [t.detach().clone().requires_grad_(True)
+            for t in vgh.vgh_reference(params, spec, surf) + vg.vg_reference(params, spec, off)]
+    terms = loss_s1(params, spec, pts, nrm, sdf, cfg.loss_s1_weights, cfg.alpha,
+                    n_surface=n_on, vgh_fn=lambda *a: tuple(outs[:3]),
+                    vg_fn=lambda *a: tuple(outs[3:]))
+    cf, cg, ch, cfo, cgo = torch.autograd.grad(sum(terms.values()), outs)
+    cot16 = torch.cat([cf[:, None], cg, ch, torch.zeros_like(ch)], dim=1).contiguous()
+    cot8 = torch.cat([cfo[:, None], cgo, torch.zeros_like(cfo)[:, None].expand(-1, 4)],
+                     dim=1).contiguous()
+    p64 = [{k: v.double() for k, v in layer.items()} for layer in params]
+    print(f"[train-kernels] {n_on} surface rows ({n_on % 8} in K2's masked last tile of 8), "
+          f"{len(off)} off-surface rows ({len(off) % 16} in the masked last tile of 16)")
+    failed, out = [], {}
+
+    # K3a: element by element, f 1e-5 and g 1e-4 absolute plus RTOL |plain|
+    got, want = vg.vg(params, spec, off), vg.vg_reference(params, spec, off)
+    exact = vg.vg_reference(p64, spec, off.double())
+    torch.cuda.synchronize()
+    worst = 0.0
+    for k, a, b, e in zip(("f", "g"), got, want, exact):
+        worst = max(worst, float(((a - b).abs() / (TOL[k] + RTOL * b.abs())).max()))
+        witness(f"K3a {k}", a, b, e, failed)
+    err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+    print(f"[train-kernels] K3a: max |kernel - plain| {err:.3e}, worst err/limit {worst:.3f}")
+    if not worst <= 1:
+        failed.append("K3a outside its tolerance of the plain version")
+    out["K3a"] = {"max_abs_err": err}
+
+    # K2 and K3b: every gradient element within GTOL * max(max |plain|, 1)
+    # + RTOL |plain| of the plain version
+    for name, fn, plain, x, cot in (("K2", vgh.vgh_bwd, vgh.vgh_bwd_reference, surf, cot16),
+                                    ("K3b", vg.vg_bwd, vg.vg_bwd_reference, off, cot8)):
+        got, want = fn(params, spec, x, cot), plain(params, spec, x, cot)
+        exact = plain(p64, spec, x.double(), cot.double())
+        torch.cuda.synchronize()
+        worst = 0.0
+        for g, w in zip(got, want):
+            for k in ("w", "b"):
+                limit = GTOL[name] * max(float(w[k].abs().max()), 1.0) + RTOL * w[k].abs()
+                worst = max(worst, float(((g[k] - w[k]).abs() / limit).max()))
+        g_k, g_p, g_e = (flatten_params(t) for t in (got, want, exact))
+        err = float((g_k - g_p).abs().max())
+        print(f"[train-kernels] {name}: max |kernel - plain| {err:.3e} (plain: max "
+              f"{float(g_p.abs().max()):.3e}, RMS {float(g_p.square().mean().sqrt()):.3e}), "
+              f"worst err/limit {worst:.3f}")
+        witness(name, g_k, g_p, g_e, failed)
+        if not worst <= 1:
+            failed.append(f"{name} outside its tolerance of the plain version")
+        out[name] = {"max_abs_err": err}
+    if failed:
+        raise AssertionError("; ".join(failed))
+
+    # times at the slice's shapes, and bounds (FP32 FMA or bytes)
+    runs = {
+        "K1": (lambda: vgh.vgh(params, spec, surf), lambda: vgh.vgh_reference(params, spec, surf),
+               (len(surf), 10, 1, 4 * (3 + 16), 1)),
+        "K2": (lambda: vgh.vgh_bwd(params, spec, surf, cot16),
+               lambda: vgh.vgh_bwd_reference(params, spec, surf, cot16),
+               (len(surf), 10, 3, 4 * (3 + 16), 2)),
+        "K3a": (lambda: vg.vg(params, spec, off), lambda: vg.vg_reference(params, spec, off),
+                (len(off), 4, 1, 4 * (3 + 8), 1)),
+        "K3b": (lambda: vg.vg_bwd(params, spec, off, cot8),
+                lambda: vg.vg_bwd_reference(params, spec, off, cot8),
+                (len(off), 4, 3, 4 * (3 + 8), 2)),
+    }
+    for name, (kernel, plain, shape) in runs.items():
+        ms, plain_ms = cuda_ms(kernel, 20), cuda_ms(plain, 5)
+        bound, by = siren_kernel_bound(shape[0], HIDDEN, *shape[1:])
+        out.setdefault(name, {}).update(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by)
+        print(f"[train-kernels] {name} at {shape[0]} rows: {ms:.3f} ms (median of 20), plain "
+              f"{plain_ms:.3f} ms, bound {bound:.3f} ms ({by}), {bound / ms:.1%} of the bound")
+    return out
+
+
+KERNELS = {
+    "K1": ("vgh", "diffudf_tpu_torch/csrc/vgh.cu", "diffudf_tpu/ops/pallas_vgh.py:55 (_vgh_kernel)"),
+    "K2": ("vgh_bwd", "diffudf_tpu_torch/csrc/vgh_bwd.cu",
+           "diffudf_tpu/ops/pallas_vgh_vjp.py:45 (_vgh_bwd_kernel)"),
+    "K3a": ("vg", "diffudf_tpu_torch/csrc/vg.cu", "diffudf_tpu/ops/pallas_vg.py:25 (_vg_fwd_kernel)"),
+    "K3b": ("vg_bwd", "diffudf_tpu_torch/csrc/vg.cu",
+            "diffudf_tpu/ops/pallas_vg.py:93 (_vg_bwd_kernel)"),
+}
+
+
 def main():
     device_phase()
     build_phase()
     kernel_phase()
     with tempfile.TemporaryDirectory() as tmp:
         model_path = fixture_phase(tmp)
-        stats, launches = slice_phase(tmp, model_path)
+        stats, k1_mc_launches = slice_phase(tmp, model_path)
         t = timing_phase(model_path, stats["dirs_points"])
-    print(json.dumps({"kernels": [{
-        "name": "vgh",
-        "route": "cuda",
-        "source": "diffudf_tpu_torch/csrc/vgh.cu",
-        "replaces": "diffudf_tpu/ops/pallas_vgh.py:55 (_vgh_kernel)",
-        "launches": launches,
-        "max_abs_err": max(t["max_err"].values()),
-        "max_err": t["max_err"],
-        "ms": t["ms"],
-        "plain_ms": t["plain_ms"],
-        "bound_ms": t["bound_ms"],
-        "bound_by": t["bound_by"],
-        "library_ms": None,
-    }]}))
+        run = train_phase(tmp)
+        tk = train_kernel_phase(run["params"], run["cfg_path"])
+    rows = []
+    for key, (name, source, replaces) in KERNELS.items():
+        row = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+               "launches": run["launches"][key]}
+        if key == "K1":
+            # K1 runs on both paths: its numbers are those at the extraction
+            # shape (phase 6); phase 8 prints them at the training shape
+            row.update(launches_by_path={"generate_mc": k1_mc_launches,
+                                         "train": run["launches"]["K1"]},
+                       max_abs_err=max(t["max_err"].values()), max_err=t["max_err"],
+                       ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+                       bound_by=t["bound_by"], train_shape=tk["K1"])
+        else:
+            row.update({k: tk[key][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                                "bound_by")})
+        row["library_ms"] = None
+        rows.append(row)
+    print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -89,3 +89,10 @@ def top_eigenvector(A):
     """Unit eigenvector of the largest eigenvalue: (..., 3, 3) -> (..., 3)."""
     lam = _eigvals3(A)
     return _eigvec_for(A, lam[..., 0], lam[..., 1])
+
+
+def top_eigenvector_packed(h6):
+    """Top eigenvector straight from a packed (..., 6) Hessian."""
+    from .ops import hess_from_packed
+
+    return top_eigenvector(hess_from_packed(h6))

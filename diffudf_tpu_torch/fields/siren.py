@@ -94,6 +94,32 @@ def params_to_jax(params):
     ]
 
 
+def flat_size(spec: SirenSpec) -> int:
+    """Number of parameters of ``spec``."""
+    dims = spec.layer_dims
+    return sum(a * b + b for a, b in zip(dims[:-1], dims[1:]))
+
+
+def flatten_params(params) -> torch.Tensor:
+    """Params -> one flat tensor in the order of ``jax.flatten_util.
+    ravel_pytree`` over the JAX layout: layer by layer, ``b`` then ``w``
+    (dict keys sorted), each row-major."""
+    return torch.cat([layer[k].reshape(-1) for layer in params for k in ("b", "w")])
+
+
+def unflatten_params(flat: torch.Tensor, spec: SirenSpec):
+    """Inverse of :func:`flatten_params`: a list of ``{'w', 'b'}`` views of
+    ``flat``."""
+    dims = spec.layer_dims
+    out, o = [], 0
+    for a, b in zip(dims[:-1], dims[1:]):
+        out.append({"b": flat[o:o + b], "w": flat[o + b:o + b + a * b].view(a, b)})
+        o += b + a * b
+    if o != flat.numel():
+        raise ValueError(f"flat params hold {flat.numel()} values, the spec {o}")
+    return out
+
+
 def siren_apply(params, spec: SirenSpec, x: torch.Tensor) -> torch.Tensor:
     """Forward pass: ``(N, n_in) -> (N, n_out)``."""
     freqs = spec.freqs

@@ -1,17 +1,27 @@
-"""Model checkpoints in the JAX package's format (``diffudf_tpu/train/
-checkpoint.py``): a flat ``.npz`` of ``layer{i}_w`` (in, out) and
-``layer{i}_b`` arrays plus a ``.spec.json`` sidecar of the SirenSpec, so a
-checkpoint written by either package loads in the other."""
+"""Checkpoints in the JAX package's formats (``diffudf_tpu/train/
+checkpoint.py``), so a file written by either package loads in the other:
+
+  * model artifacts: a flat ``.npz`` of ``layer{i}_w`` (in, out) and
+    ``layer{i}_b`` arrays plus a ``.spec.json`` sidecar of the SirenSpec;
+  * the resumable train state: one ``.npz`` with ``params`` and
+    ``opt_state`` flat in float32, in the order ``jax.flatten_util.
+    ravel_pytree`` gives the JAX params and optax's
+    ``ScaleByAdamState(count, mu, nu)`` (the int32 count promoted to
+    float32), the ``epoch``, and ``key``, a (2,) uint32 PRNG key.
+"""
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import logging
+import os
+import shutil
 
 import numpy as np
 import torch
 
-from ..fields.siren import SirenSpec
+from ..fields.siren import SirenSpec, flatten_params, unflatten_params
 
 
 def save_params(path: str, params, spec: SirenSpec | None = None):
@@ -63,3 +73,61 @@ def check_params_match_spec(params, spec: SirenSpec):
             f"checkpoint layer dims {got} do not match configured architecture "
             f"{want}; check hidden_layer_nodes in the config"
         )
+
+
+@dataclasses.dataclass
+class AdamState:
+    """optax ``ScaleByAdamState``: the step count and the two moments, each a
+    list of ``{'w', 'b'}`` tensors like the params."""
+
+    count: int
+    mu: list
+    nu: list
+
+
+def save_train_state(path: str, params, opt_state: AdamState, epoch: int, key):
+    """Full resumable state as one .npz, readable by the JAX package's
+    ``load_train_state``."""
+    flat_opt = torch.cat([
+        torch.tensor([float(opt_state.count)], device=params[0]["w"].device),
+        flatten_params(opt_state.mu), flatten_params(opt_state.nu)])
+    np.savez(
+        path,
+        params=flatten_params(params).detach().cpu().numpy().astype(np.float32),
+        opt_state=flat_opt.detach().cpu().numpy().astype(np.float32),
+        epoch=np.asarray(epoch),
+        key=np.asarray(key, np.uint32),
+    )
+
+
+def load_train_state(path: str, spec: SirenSpec, device="cuda"):
+    """-> (params, AdamState, epoch, key (2,) uint32) from a file written by
+    either package; tensors are float32 on ``device``."""
+    with np.load(path) as data:
+        flat_p = torch.as_tensor(data["params"], dtype=torch.float32, device=device)
+        flat_o = torch.as_tensor(data["opt_state"], dtype=torch.float32, device=device)
+        epoch, key = int(data["epoch"]), np.asarray(data["key"], np.uint32)
+    n = flat_p.numel()
+    if flat_o.numel() != 1 + 2 * n:
+        raise ValueError(f"{path}: opt_state holds {flat_o.numel()} values, "
+                         f"expected {1 + 2 * n} for {n} params")
+    opt = AdamState(
+        count=int(flat_o[0].item()),
+        mu=unflatten_params(flat_o[1:1 + n].clone(), spec),
+        nu=unflatten_params(flat_o[1 + n:].clone(), spec),
+    )
+    return unflatten_params(flat_p, spec), opt, epoch, key
+
+
+def create_output_paths(checkpoint_path: str, experiment_name: str, overwrite: bool = False):
+    """Mirror of reference ``src/util.py:10-22``: refuse to clobber unless asked."""
+    full_path = os.path.join(".", checkpoint_path, experiment_name)
+    if os.path.exists(full_path):
+        if overwrite:
+            shutil.rmtree(full_path)
+        else:
+            logging.warning("Output path exists. Not overwriting.")
+            return full_path
+    os.makedirs(os.path.join(full_path, "models"), exist_ok=True)
+    os.makedirs(os.path.join(full_path, "reconstructions"), exist_ok=True)
+    return full_path

@@ -1,0 +1,275 @@
+"""The training loop, on one device: the torch counterpart of
+``diffudf_tpu/train/loop.py`` without data parallelism.
+
+One *epoch* = ``batches_per_epoch`` (sample → loss → backward → Adam)
+updates, the reference accounting (``train.py:146-283``).  Epochs run in
+chunks of up to ``chunk_size``, cut at the s1→s2 boundary and at checkpoint
+epochs; a callback fires after each chunk.  Stage, loss and learning rate
+follow the epoch.  Everything a step touches stays on the device: the batch
+is drawn from a ``torch.Generator`` there, the loss terms, the best loss and
+the best params are device tensors, and the host reads the logs once per
+chunk.
+
+On a uniform-width sine SIREN the s1 loss runs the fused ops: K1 + K2
+(``ops.vgh.vgh_op``) on the on-surface rows and K3a + K3b (``ops.vg.vg_op``)
+on the others; on a CPU tensor those ops run their plain versions.
+
+Optimizer: Adam with torch-default hyperparameters (β=(0.9, 0.999),
+ε=1e-8), optax's ``scale_by_adam`` written out, with the learning rate
+multiplying the preconditioned update per step (``loop.py:20-22, 234`` of the
+JAX package).
+
+Random keys: the state carries a (2,) uint32 key.  Each chunk seeds the
+sampling generator from it and replaces it by the next key of a fixed host
+chain, so a run resumed from a saved state draws the batches the
+uninterrupted run would have drawn.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+
+import numpy as np
+import torch
+
+from ..config import TrainConfig
+from ..data.sampling import TrainingSampler
+from ..fields.siren import SirenSpec, init_siren
+from ..ops.vg import vg_op
+from ..ops.vgh import vgh_op
+from .checkpoint import AdamState
+from .losses import loss_s1, loss_s2, loss_siren
+from .schedule import lr_for_epoch, lr_for_epoch_siren
+
+ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
+
+TERM_NAMES = {
+    "s1": ("sdf_on_surf", "sdf_off_surf", "hessian_constraint", "grad_constraint"),
+    "s2": ("sdf_on_surf", "std_on_surf"),
+    "siren": ("sdf_on_surf", "sdf_off_surf", "normal_constraint", "grad_constraint"),
+}
+
+
+@dataclasses.dataclass
+class TrainState:
+    params: list  # [{'w', 'b'}] leaf tensors
+    opt_state: AdamState
+    best_loss: torch.Tensor  # scalar f32 on the device
+    best_params: list
+    key: np.ndarray  # (2,) uint32: seeds the next chunk's generator
+
+
+def key_from_seed(seed: int) -> np.ndarray:
+    """The key ``jax.random.PRNGKey(seed)`` gives for a 32-bit seed."""
+    return np.array([0, seed & 0xFFFFFFFF], np.uint32)
+
+
+def next_key(key) -> np.ndarray:
+    return np.random.default_rng(np.asarray(key, np.uint32)).integers(
+        0, 2**32, 2, dtype=np.uint32)
+
+
+def generator_for(key, device) -> torch.Generator:
+    key = np.asarray(key, np.uint32)
+    seed = (int(key[0]) << 32) | int(key[1])
+    return torch.Generator(device=device).manual_seed(seed)
+
+
+def _leaves(params):
+    return [t for layer in params for t in (layer["w"], layer["b"])]
+
+
+def adam_update(params, grads, opt: AdamState, lr: float) -> AdamState:
+    """One optax ``scale_by_adam`` step followed by ``p - lr * u``, in place
+    on ``params`` and on the moments; -> the new state."""
+    p, g = _leaves(params), list(grads)
+    mu, nu = _leaves(opt.mu), _leaves(opt.nu)
+    count = opt.count + 1
+    with torch.no_grad():
+        torch._foreach_mul_(mu, ADAM_B1)
+        torch._foreach_add_(mu, g, alpha=1.0 - ADAM_B1)
+        torch._foreach_mul_(nu, ADAM_B2)
+        torch._foreach_addcmul_(nu, g, g, value=1.0 - ADAM_B2)
+        # bias corrections in float32, as optax computes decay ** count
+        bc1 = float(1 - np.float32(ADAM_B1) ** np.float32(count))
+        bc2 = float(1 - np.float32(ADAM_B2) ** np.float32(count))
+        denom = torch._foreach_div(nu, bc2)
+        torch._foreach_sqrt_(denom)
+        torch._foreach_add_(denom, ADAM_EPS)
+        upd = torch._foreach_div(mu, bc1)
+        torch._foreach_div_(upd, denom)
+        torch._foreach_add_(p, upd, alpha=-lr)
+    return AdamState(count, opt.mu, opt.nu)
+
+
+class Trainer:
+    """Runs the epochs of one experiment on the sampler's device."""
+
+    def __init__(self, spec: SirenSpec, sampler: TrainingSampler, cfg: TrainConfig):
+        self.spec = spec
+        self.sampler = sampler
+        self.cfg = cfg
+        self.device = sampler.device
+        fused = spec.activation == "sine" and len(set(spec.hidden)) == 1
+        self._vgh_op = vgh_op if fused else None
+        self._vg_op = vg_op if fused else None
+        self.chunk_seconds = []  # (lo, hi, stage, seconds) per chunk of the last run
+
+    # --- state ---------------------------------------------------------------
+
+    def init_state(self, key=None, params=None) -> TrainState:
+        """``params`` (JAX layout, numpy or tensors) default to a SIREN init
+        drawn from ``cfg.seed`` with numpy."""
+        if key is None:
+            key = key_from_seed(self.cfg.seed)
+        if params is None:
+            params = init_siren(self.spec, np.random.default_rng(self.cfg.seed))
+        params = self.as_leaves(params)
+        zeros = [{k: torch.zeros_like(v) for k, v in layer.items()} for layer in params]
+        return TrainState(
+            params=params,
+            opt_state=AdamState(0, zeros, [{k: v.clone() for k, v in z.items()} for z in zeros]),
+            best_loss=torch.tensor(float("inf"), device=self.device),
+            best_params=[{k: v.detach().clone() for k, v in layer.items()} for layer in params],
+            key=np.asarray(key, np.uint32),
+        )
+
+    def as_leaves(self, params):
+        """JAX-layout params -> float32 leaf tensors on the device that
+        require grad."""
+        return [{k: torch.as_tensor(v, dtype=torch.float32, device=self.device)
+                 .detach().clone().requires_grad_(True) for k, v in layer.items()}
+                for layer in params]
+
+    # --- stage plumbing ------------------------------------------------------
+
+    def _loss_terms(self, stage, params, points, normals, sdf):
+        cfg = self.cfg
+        if stage == "s1":
+            return loss_s1(params, self.spec, points, normals, sdf,
+                           cfg.loss_s1_weights, cfg.alpha,
+                           n_surface=self.sampler.sizes.on_surface,
+                           vgh_fn=self._vgh_op, vg_fn=self._vg_op)
+        if stage == "s2":
+            return loss_s2(params, self.spec, points, normals, sdf,
+                           cfg.loss_s2_weights, cfg.alpha)
+        if stage == "siren":
+            return loss_siren(params, self.spec, points, normals, sdf, cfg.loss_weights)
+        raise ValueError(stage)
+
+    def lr(self, stage, epoch) -> float:
+        cfg = self.cfg
+        if stage == "siren":
+            lr = lr_for_epoch_siren(epoch, warmup_epochs=cfg.warmup_epochs,
+                                    warmup_lr=cfg.warmup_lr, lr=cfg.lr)
+        else:
+            lr = lr_for_epoch(
+                epoch, num_epochs=cfg.num_epochs, s1_epochs=cfg.s1_epochs,
+                warmup_epochs=cfg.warmup_epochs, warmup_lr=cfg.warmup_lr,
+                lr_s1=cfg.lr_s1, lr_s2=cfg.lr_s2,
+            )
+        return float(lr)
+
+    def stage_for_epoch(self, epoch: int) -> str:
+        if self.cfg.gt_mode == "siren":
+            return "siren"
+        return "s1" if epoch < self.cfg.s1_epochs else "s2"
+
+    def stage_boundaries(self):
+        """Epoch indices where the loss changes."""
+        if self.cfg.gt_mode == "siren":
+            return []
+        return [self.cfg.s1_epochs]
+
+    # --- epochs --------------------------------------------------------------
+
+    def epoch(self, state: TrainState, stage: str, epoch: int, gen: torch.Generator):
+        """Run one epoch in place on ``state``; -> its log row, a device
+        tensor (terms..., total) summed over the batches, then epoch_loss."""
+        lr = self.lr(stage, epoch)
+        names = TERM_NAMES[stage]
+        sums = torch.zeros(len(names) + 1, device=self.device)
+        for _ in range(self.cfg.batches_per_epoch):
+            pts, nrm, sdf = self.sampler.sample(gen)
+            terms = self._loss_terms(stage, state.params, pts, nrm, sdf)
+            row = torch.stack([terms[k] for k in names])
+            total = row.sum()
+            grads = torch.autograd.grad(total, _leaves(state.params))
+            state.opt_state = adam_update(state.params, grads, state.opt_state, lr)
+            sums += torch.cat([row, total[None]]).detach()
+        epoch_loss = sums[-1] / self.cfg.batches_per_epoch
+        # the JAX package's quirk, kept: the params chosen are those AFTER
+        # this epoch's updates, on the loss measured before them
+        is_best = epoch_loss < state.best_loss
+        state.best_loss = torch.where(is_best, epoch_loss, state.best_loss)
+        with torch.no_grad():
+            for new, old in zip(_leaves(state.params), _leaves(state.best_params)):
+                old.copy_(torch.where(is_best, new, old))
+        return torch.cat([sums, epoch_loss[None]])
+
+    def chunk_edges(self, start_epoch: int, chunk_size: int):
+        """(lo, hi) epoch ranges: chunks of up to ``chunk_size`` (or the
+        checkpoint cadence, if shorter), cut at stage boundaries and at
+        checkpoint epochs."""
+        cfg = self.cfg
+        if 0 < cfg.epochs_to_checkpoint < chunk_size:
+            chunk_size = cfg.epochs_to_checkpoint
+        marks = {cfg.num_epochs}
+        for b in self.stage_boundaries():
+            if start_epoch < b < cfg.num_epochs:
+                marks.add(b)
+        if cfg.epochs_to_checkpoint:
+            marks.update(range(cfg.epochs_to_checkpoint, cfg.num_epochs,
+                               cfg.epochs_to_checkpoint))
+        e, edges = start_epoch, []
+        while e < cfg.num_epochs:
+            nxt = min([m for m in marks if m > e] + [e + chunk_size])
+            edges.append((e, nxt))
+            e = nxt
+        return edges
+
+    def run(self, state: TrainState | None = None, start_epoch: int = 0,
+            chunk_size: int = 250, callback=None):
+        """Train from ``start_epoch`` to ``num_epochs``.
+
+        ``callback(epoch_end, state, logs)`` fires after every chunk;
+        ``logs`` maps term name -> np array of per-epoch values within the
+        chunk (plus ``total``, ``lr`` and ``epoch_loss``).
+
+        Returns (final_state, losses dict of full-length np arrays,
+        training_seconds: chunk time with the device synchronised at each
+        chunk's end, callback work excluded).  ``self.chunk_seconds`` keeps
+        each chunk's (lo, hi, stage, seconds).
+        """
+        if state is None:
+            state = self.init_state()
+        self.callback_seconds = 0.0
+        self.chunk_seconds = []
+        all_logs, train_time = [], 0.0
+        for lo, hi in self.chunk_edges(start_epoch, chunk_size):
+            stage = self.stage_for_epoch(lo)
+            names = TERM_NAMES[stage] + ("total", "epoch_loss")
+            t0 = time.perf_counter()
+            gen = generator_for(state.key, self.device)
+            state.key = next_key(state.key)
+            rows = [self.epoch(state, stage, e, gen) for e in range(lo, hi)]
+            table = torch.stack(rows).cpu().numpy()  # the chunk's one host read
+            secs = time.perf_counter() - t0
+            train_time += secs
+            self.chunk_seconds.append((lo, hi, stage, secs))
+            logs = {k: table[:, i].astype(np.float64) for i, k in enumerate(names)}
+            logs["lr"] = np.array([self.lr(stage, e) for e in range(lo, hi)])
+            all_logs.append((lo, hi, logs))
+            if callback is not None:
+                t_cb = time.perf_counter()
+                callback(hi, state, logs)
+                self.callback_seconds += time.perf_counter() - t_cb
+
+        keys = sorted({k for _, _, lg in all_logs for k in lg})
+        losses = {k: np.full(self.cfg.num_epochs - start_epoch, np.nan) for k in keys}
+        for lo, hi, lg in all_logs:
+            for k, v in lg.items():
+                losses[k][lo - start_epoch:hi - start_epoch] = v
+        return state, losses, train_time
+

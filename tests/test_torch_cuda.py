@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain torch versions, on a GPU.
+"""The port's CUDA kernels (K1, K2, K3a, K3b) against their plain torch
+versions, on a GPU.
 
 Marked ``cuda``; each test skips without a CUDA device.  This file imports
 neither jax nor the JAX package, so it also runs on a machine without them:
@@ -11,6 +12,7 @@ import pytest
 import torch
 
 from diffudf_tpu_torch.fields.siren import SirenSpec, init_siren, params_from_jax
+from diffudf_tpu_torch.ops import vg as tg
 from diffudf_tpu_torch.ops import vgh as tv
 
 # tests/test_pallas.py::TestPallasVGH::test_matches_reference
@@ -33,3 +35,89 @@ def test_vgh_kernel_matches_plain_version(hidden, n):
     assert tv.launches == before + 1
     for k, a, b in zip(("f", "g", "h6"), got, tv.vgh_reference(params, spec, x)):
         assert float((a - b).abs().max()) <= TOL[k], k
+
+
+# Backward kernels against their plain versions: each gradient element
+# within GTOL * max(max |plain grad of that param|, 1) + RTOL * |plain|.
+# GTOL is the Pallas gradcheck's (tests/test_pallas.py: 2e-5 for the vgh
+# VJP, 1e-5 for the vg VJP); RTOL covers float32 sums taken in another order
+# over thousands of rows.
+GTOL = {"vgh_bwd": 2e-5, "vg_bwd": 1e-5}
+RTOL = 1e-4
+
+
+def _case(hidden, n, seed=0):
+    spec = SirenSpec(hidden=hidden)
+    params = params_from_jax(init_siren(spec, np.random.default_rng(seed)), "cuda")
+    rng = np.random.default_rng(seed + 1)
+    x = torch.as_tensor(rng.uniform(-1, 1, (n, 3)), dtype=torch.float32, device="cuda")
+    cot = torch.as_tensor(rng.normal(size=(n, 16)), dtype=torch.float32, device="cuda")
+    return spec, params, x, cot
+
+
+def _bwd(kernel, cot):
+    """(module, wrapper, plain version, cotangent) of a backward kernel."""
+    if kernel == "vgh_bwd":
+        c = cot.clone()
+        c[:, 10:] = 0
+        return tv, tv.vgh_bwd, tv.vgh_bwd_reference, c
+    c = cot[:, :8].contiguous()
+    c[:, 4:] = 0
+    return tg, tg.vg_bwd, tg.vg_bwd_reference, c
+
+
+def _grad_errors(got, want, gtol):
+    """Worst |kernel - plain| / limit over each param tensor."""
+    worst = 0.0
+    for g, w in zip(got, want):
+        for k in ("w", "b"):
+            limit = gtol * max(float(w[k].abs().max()), 1.0) + RTOL * w[k].abs()
+            worst = max(worst, float(((g[k] - w[k]).abs() / limit).max()))
+    return worst
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hidden,n", [((256,) * 8, 9990), ((64,) * 3, 1001)])
+def test_vg_kernel_matches_plain_version(hidden, n):
+    """K3a against vg_reference on the card, a ragged last tile included."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: K3a has no CPU mode")
+    spec, params, x, _ = _case(hidden, n)
+    before = tg.launches
+    got = tg.vg(params, spec, x)
+    torch.cuda.synchronize()
+    assert tg.launches == before + 1
+    for k, a, b in zip(("f", "g"), got, tg.vg_reference(params, spec, x)):
+        assert float((a - b).abs().max()) <= TOL[k], k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["vgh_bwd", "vg_bwd"])
+@pytest.mark.parametrize("hidden,n", [((256,) * 8, 9990), ((64,) * 3, 1001)])
+def test_backward_kernel_matches_plain_version(kernel, hidden, n):
+    """K2 / K3b against their plain versions on the card, ragged N."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: K2 and K3b have no CPU mode")
+    spec, params, x, cot = _case(hidden, n)
+    mod, fn, plain, c = _bwd(kernel, cot)
+    before = mod.bwd_launches
+    got = fn(params, spec, x, c)
+    torch.cuda.synchronize()
+    assert mod.bwd_launches == before + 1
+    assert _grad_errors(got, plain(params, spec, x, c), GTOL[kernel]) <= 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["vgh_bwd", "vg_bwd"])
+def test_backward_kernel_is_bit_reproducible(kernel):
+    """Two launches on the same input give the same bits: partial sums per
+    CTA and a fixed-order reduction, no float atomics."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    spec, params, x, cot = _case((256,) * 8, 9990, seed=4)
+    _, fn, _, c = _bwd(kernel, cot)
+    first = fn(params, spec, x, c)
+    second = fn(params, spec, x, c)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a["w"], b["w"]) and torch.equal(a["b"], b["b"])

@@ -137,13 +137,19 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "bad = [k for k in sys.modules if k == 'jax' or k.startswith('jax.')\n"
         "       or k == 'diffudf_tpu' or k.startswith('diffudf_tpu.')]\n"
         "assert not bad, bad\n"
-        "print(len([k for k in sys.modules if k.startswith('diffudf_tpu_torch')]))\n"
+        "print(' '.join(k for k in sys.modules if k.startswith('diffudf_tpu_torch')))\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) > 20
+    loaded = set(out.stdout.split())
+    assert len(loaded) > 20
+    # the training slice's modules are among those walked and imported
+    for name in ("cli.train", "cli.preprocess", "config", "data.mesh_distance",
+                 "data.normalize", "data.oracle_cache", "data.sampling", "ops.kernel_io",
+                 "ops.vg", "train.losses", "train.loop", "train.schedule", "utils.metrics"):
+        assert "diffudf_tpu_torch." + name in loaded, name
 
 
 def test_native_library_is_built_from_source():

@@ -1,10 +1,12 @@
-"""Port parity: the fused (f, ∇f, packed H) kernel K1 (``diffudf_tpu_torch.
-ops.vgh``) and the field evaluation that dispatches to it.
+"""Port parity: the fused (f, ∇f, packed H) kernel K1 and its VJP K2
+(``diffudf_tpu_torch.ops.vgh``), and the field evaluation that dispatches
+to K1.
 
-On the CPU the wrapper runs its plain torch version, which is held against
-the JAX package's Taylor-mode function and its Pallas kernel (interpret
-mode, patched as tests/test_pallas.py does).  The kernel itself is held
-against the plain version on a GPU, in tests/test_torch_cuda.py."""
+On the CPU the wrappers run their plain torch versions, which are held
+against the JAX package's Taylor-mode function, ``jax.grad`` of it, and the
+Pallas forward kernel (interpret mode, patched as tests/test_pallas.py
+does).  The kernels themselves are held against the plain versions on a
+GPU, in tests/test_torch_cuda.py."""
 
 import jax
 import jax.experimental.pallas as pl
@@ -99,3 +101,57 @@ def test_evaluate_field_matches_jax(want):
         np.testing.assert_allclose(got.grad.numpy(), np.asarray(ref.grad), rtol=0, atol=1e-4)
     if want == "hess":
         np.testing.assert_allclose(got.hess.numpy(), np.asarray(ref.hess), rtol=0, atol=5e-3)
+
+
+# K2: tests/test_pallas.py::TestPallasVGHGrad, every gradient within
+# 2e-5 * max(max |grad|, 1) of jax.grad of the Taylor-mode reference.
+GTOL_VGH = 2e-5
+
+
+@pytest.mark.parametrize("hidden,n", [((32,) * 4, 1001)])
+def test_backward_matches_jax_grad(hidden, n):
+    """vgh_bwd_reference (the hand-derived backward of
+    pallas_vgh_vjp.py) and the autograd op VghOp, both against jax.grad of
+    value_grad_hessian_packed on L = Σ sin f + Σ g² + Σ cos h6."""
+    spec, jspec, np_params, jparams, x = _case(hidden, n, seed=5)
+
+    def loss(p):
+        f, g, h6 = value_grad_hessian_packed(p, jspec, jnp.asarray(x))
+        return jnp.sum(jnp.sin(f)) + jnp.sum(g * g) + jnp.sum(jnp.cos(h6))
+
+    want = jax.grad(loss)(jparams)
+
+    def check(got):
+        for layer, (a, b) in enumerate(zip(got, want)):
+            for k in ("w", "b"):
+                b_k = np.asarray(b[k])
+                scale = max(float(np.abs(b_k).max()), 1.0)
+                err = float(np.abs(np.asarray(a[k]) - b_k).max())
+                assert err < GTOL_VGH * scale, (layer, k, err, GTOL_VGH * scale)
+
+    params = params_from_jax(np_params, "cpu")
+    xt = torch.from_numpy(x)
+    f, g, h6 = tv.vgh_reference(params, spec, xt)
+    cot = torch.cat([torch.cos(f)[:, None], 2 * g, -torch.sin(h6), torch.zeros((n, 6))], dim=1)
+    check(tv.vgh_bwd(params, spec, xt, cot))
+
+    for layer in params:
+        for t in layer.values():
+            t.requires_grad_(True)
+    f, g, h6 = tv.vgh_op(params, spec, xt)
+    (torch.sin(f).sum() + (g * g).sum() + torch.cos(h6).sum()).backward()
+    check([{k: t.grad for k, t in layer.items()} for layer in params])
+
+
+def test_backward_wrapper_on_cpu_runs_the_plain_version():
+    spec, _, np_params, _, x = _case((32, 32, 32), 40)
+    params = params_from_jax(np_params, "cpu")
+    cot = torch.from_numpy(np.random.default_rng(9).normal(size=(40, 16)).astype(np.float32))
+    before = tv.bwd_launches
+    got = tv.vgh_bwd(params, spec, torch.from_numpy(x), cot)
+    want = tv.vgh_bwd_reference(params, spec, torch.from_numpy(x), cot)
+    for a, b in zip(got, want):
+        assert torch.equal(a["w"], b["w"]) and torch.equal(a["b"], b["b"])
+    assert tv.bwd_launches == before
+    with pytest.raises(ValueError):
+        tv.vgh_bwd(params, spec, torch.from_numpy(x), cot[:, :8])
