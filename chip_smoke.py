@@ -4,15 +4,18 @@
     python3 chip_smoke.py
 
 Drives ``diffudf_tpu_torch`` alone (no JAX, no ``diffudf_tpu``) through its
-two paths: mesh extraction, ``generate_mc`` at N=256 with both MeshUDF and
-CAP on an 8x256 SIREN fitted in process to a sphere; and training,
-``cli.train`` on the point-cloud torus recipe (8x256, batch 30,000, 3000
-epochs).  It holds every kernel of those paths against its plain torch
-version: K1 (f, grad f, Hessian), K2 (its VJP), K3a (f, grad f) and K3b
-(its VJP).  Phases, in order, each printing its seconds:
+three paths: mesh extraction, ``generate_mc`` at N=256 with both MeshUDF and
+CAP on an 8x256 SIREN fitted in process to a sphere; training, ``cli.train``
+on the point-cloud torus recipe (8x256, batch 30,000, 3000 epochs); and
+rendering, ``cli.generate_st`` at 720x720 with 3 passes on the trained
+torus.  It holds every kernel of those paths against its plain torch
+version: K1 (f, grad f, Hessian), K2 (its VJP), K3a (f, grad f), K3b (its
+VJP) and K4 (f alone, the march's value).  Phases, in order, each printing
+its seconds:
 
-  1. device   — needs CUDA; prints the nvidia-smi name and power limit;
-  2. build    — nvcc (K1; K2; K3a and K3b) and g++ (sign voting), all
+  1. device   — needs CUDA; prints the nvidia-smi name and power limit,
+                and whether the optional matplotlib and PIL import;
+  2. build    — nvcc (K1; K2; K3a and K3b; K4) and g++ (sign voting), all
                 started together, into the package's ignored build
                 directory, with each ptxas register report;
   3. kernel   — K1 vs ``vgh_reference`` on 65,536 points of a random-init
@@ -42,7 +45,20 @@ version: K1 (f, grad f, Hessian), K2 (its VJP), K3a (f, grad f) and K3b
                 float64, on the trained net and a batch of its sampler at
                 the slice's shapes (9,990 surface rows for K2, 19,980
                 off-surface rows for K3a and K3b, the loss's own
-                cotangents); then their times and bounds.
+                cotangents); then their times and bounds;
+  9. render   — ``diffudf_tpu_torch.cli.generate_st.main`` in process on
+                configs/st_cfg.json's rendering config (720x720, 3 passes,
+                the mixed bf16 march) with the trained torus; gates: K4
+                launched once per march iteration, K1 once per pass, every
+                pass with hits on 1-99% of its valid rays, finite colours, a
+                PNG file; then a one-pass float32 march (hit pixels against
+                the bf16 march's first pass) and a one-pass gaussian-
+                curvature Ward render (the plain Jacobian path); prints
+                Mrays/s beside the original DiffUDF's 0.045;
+ 10. render kernel — K4 against its plain version in both modes, element
+                by element, and in float32 against the plain version in
+                float64, on pass 1's entry points at the first round's
+                bucket shape; then their times and bounds.
 
 Then a ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}`` line.
 Any failed phase raises, and the script exits non-zero without the last
@@ -103,6 +119,15 @@ BASELINE_STEPS_PER_S = 7.54  # original DiffUDF, 3000 epochs in 398 s (BASELINE.
 # RTOL * |plain| of the plain version; GTOL is the Pallas gradcheck's
 # (tests/test_pallas.py: 2e-5 for the vgh VJP, 1e-5 for the vg VJP).
 GTOL = {"K2": 2e-5, "K3b": 1e-5}
+# Phase 9: configs/st_cfg.json's rendering on the torus of phase 7, whose
+# recipe trained at alpha 10 (st_cfg's alpha 100 belongs to its beetle).
+ST_CONFIG = os.path.join(REPO, "configs", "st_cfg.json")
+BASELINE_MRAYS_PER_S = 0.045  # the original DiffUDF tracer (bench_rays.py, BASELINE.md)
+MAX_HIT_FLIPS = 0.05  # float32 vs bf16 march: hit pixels that differ, share of the hits
+# Phase 10: K4 element by element within K4_TOL + RTOL * |plain|; K4_TOL is
+# the Pallas value test's (tests/test_pallas.py: f32 1e-5, bf16 2e-3).
+K4_TOL = {"f32": 1e-5, "bf16": 2e-3}
+PEAK_BF16_FLOPS = 989e12  # dense bf16 tensor rate, H100 SXM at 700 W
 
 
 def phase(name):
@@ -183,16 +208,23 @@ def device_phase():
           f"cuda {torch.version.cuda} {torch.cuda.get_device_name(0)}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    for name in ("matplotlib", "PIL"):
+        try:
+            __import__(name)
+            print(f"[device] optional package {name}: imports")
+        except ImportError as exc:
+            print(f"[device] optional package {name}: missing ({exc})")
 
 
 @phase("build")
 def build_phase():
     """Every native library at once: one compiler process per source."""
     from diffudf_tpu_torch.native import udf_mc
-    from diffudf_tpu_torch.ops import vg, vgh
+    from diffudf_tpu_torch.ops import value, vg, vgh
 
     builds = {"vgh (nvcc, K1)": vgh.build, "vgh_bwd (nvcc, K2)": vgh.build_bwd,
-              "vg (nvcc, K3a + K3b)": vg.build, "udf_mc (g++)": udf_mc.build}
+              "vg (nvcc, K3a + K3b)": vg.build, "value (nvcc, K4)": value.build,
+              "udf_mc (g++)": udf_mc.build}
 
     def timed(fn):
         t0 = time.perf_counter()
@@ -504,13 +536,13 @@ def train_phase(tmp):
             "s1_steps_per_s": s1_rate, "s2_steps_per_s": s2_rate, "chamfer": chamfer}
 
 
-def witness(name, got, want, exact, failed):
+def witness(name, got, want, exact, failed, tag="[train-kernels]"):
     """Print and gate got's max and RMS distance from the float64 exact
     values against WITNESS times the float32 plain version's."""
     e_k, e_p = (got.double() - exact).abs(), (want.double() - exact).abs()
     mx, rms = (float(e_k.max()), float(e_p.max())), (
         float(e_k.square().mean().sqrt()), float(e_p.square().mean().sqrt()))
-    print(f"[train-kernels] {name} vs float64, kernel / plain: max {mx[0]:.3e} / "
+    print(f"{tag} {name} vs float64, kernel / plain: max {mx[0]:.3e} / "
           f"{mx[1]:.3e}, RMS {rms[0]:.3e} / {rms[1]:.3e}")
     for what, (k, p) in (("max", mx), ("RMS", rms)):
         if not k <= WITNESS * p:
@@ -608,6 +640,177 @@ def train_kernel_phase(params, cfg_path):
     return out
 
 
+def render_config(tmp, model_path, **overrides):
+    """configs/st_cfg.json's rendering config on the torus checkpoint."""
+    with open(ST_CONFIG) as fh:
+        rendering = json.load(fh)["rendering_config"]
+    rendering.update(output_path=os.path.join(tmp, "torus_st.png"), **overrides)
+    return {"network_config": {"alpha": RECIPE["alpha"], "gt_mode": RECIPE["gt_mode"],
+                               "hidden_layer_nodes": list(HIDDEN), "w0": 30,
+                               "model_path": model_path},
+            "rendering_config": rendering}
+
+
+def hit_pixels(img):
+    """Hit pixels of a one-pass render: hit colours are clipped to 0.9 (at
+    most 229 of 255), the other pixels stay white."""
+    return (img != 255).any(axis=-1)
+
+
+@phase("render")
+def render_phase(tmp):
+    """configs/st_cfg.json's render of the trained torus through
+    cli.generate_st.main, then two one-pass variants."""
+    from diffudf_tpu_torch.cli import generate_st
+    from diffudf_tpu_torch.ops import value, vg, vgh
+
+    model_path = os.path.join(tmp, "runs", "torus", "models", "model_best.npz")
+    cfg = render_config(tmp, model_path)
+    rc = cfg["rendering_config"]
+    cfg_path = os.path.join(tmp, "st_cfg.json")
+    with open(cfg_path, "w") as fh:
+        json.dump(cfg, fh)
+
+    vgh.launches = vgh.bwd_launches = vg.launches = vg.bwd_launches = 0
+    value.launches = value.points = 0
+    img, stats = generate_st.main([cfg_path])
+    launches = {"K1": vgh.launches, "K2": vgh.bwd_launches, "K3a": vg.launches,
+                "K3b": vg.bwd_launches, "K4": value.launches}
+    k4_points = value.points
+
+    passes = stats["passes"]
+    rays = rc["width"] * rc["height"] * len(passes)
+    mrays = rays / stats["render_s"] / 1e6
+    for i, p in enumerate(passes):
+        print(f"[render] pass {i + 1}: march {p['march_s']:.3f} s, {p['iterations']} iterations, "
+              f"{p['hits']} hits of {p['valid']} valid rays ({p['hits'] / p['valid']:.1%}), "
+              f"K4 {p['k4_launches']} launches on {p['k4_points']} points; hit attributes "
+              f"{p['attributes_s']:.3f} s, shading {p['shading_s']:.3f} s", flush=True)
+    print(f"[render] {rc['width']}x{rc['height']}, {len(passes)} passes: {stats['render_s']:.3f} s, "
+          f"{mrays:.3f} Mrays/s (the original DiffUDF tracer: {BASELINE_MRAYS_PER_S} Mrays/s); "
+          f"K4 points {k4_points}; kernel launches in this run: {launches}")
+    want = {"K1": len(passes), "K2": 0, "K3a": 0, "K3b": 0,
+            "K4": sum(p["iterations"] for p in passes)}
+    if launches != want:
+        raise AssertionError(f"launches {launches} != {want}: K4 once per march iteration, "
+                             f"K1 once per pass")
+    for i, p in enumerate(passes):
+        if not (p["hits"] > 0 and 0.01 <= p["hits"] / p["valid"] <= 0.99):
+            raise AssertionError(f"pass {i + 1}: {p['hits']} hits of {p['valid']} valid rays")
+        if p["nonfinite"]:
+            raise AssertionError(f"pass {i + 1}: {p['nonfinite']} non-finite colour values")
+    if img.shape != (rc["height"], rc["width"], 3):
+        raise AssertionError(f"image shape {img.shape}")
+    with open(rc["output_path"], "rb") as fh:
+        if fh.read(8) != b"\x89PNG\r\n\x1a\n":
+            raise AssertionError("the render's output is not a PNG file")
+
+    # the float32 march on pass 1's jitter, against the bf16 march's pass 1
+    runs = {}
+    for name, extra in (("bf16", {}), ("f32", {"fast_march": False}),
+                        ("gaussian", {"plot_curvatures": "gaussian", "reflection_method": "ward"})):
+        one = {}
+        t0 = time.perf_counter()
+        runs[name] = generate_st.generate_st(render_config(tmp, model_path, sample_rate=1, **extra),
+                                             stats=one)
+        p = one["passes"][0]
+        print(f"[render] one pass, {name}: {time.perf_counter() - t0:.3f} s, march "
+              f"{p['march_s']:.3f} s, {p['iterations']} iterations, {p['hits']} hits; hit "
+              f"attributes {p['attributes_s']:.3f} s", flush=True)
+        if p["nonfinite"] or not p["hits"] > 0:
+            raise AssertionError(f"one-pass {name} render: {p['hits']} hits, "
+                                 f"{p['nonfinite']} non-finite colour values")
+        if name == "bf16" and (p["hits"], p["iterations"]) != (passes[0]["hits"],
+                                                                passes[0]["iterations"]):
+            raise AssertionError("the same pass rendered twice marched differently")
+    hb, hf = hit_pixels(runs["bf16"]), hit_pixels(runs["f32"])
+    flips = int((hb != hf).sum())
+    print(f"[render] float32 vs bf16 march, pass 1: {flips} hit pixels differ of {int(hb.sum())} "
+          f"(bound {MAX_HIT_FLIPS:.0%} of the hits)")
+    if hb.sum() != passes[0]["hits"] or flips > MAX_HIT_FLIPS * hb.sum():
+        raise AssertionError(f"{flips} of {int(hb.sum())} hit pixels differ between the marches")
+    return {"launches": launches, "cfg": cfg, "model_path": model_path, "mrays_per_s": mrays,
+            "passes": passes, "flips": flips}
+
+
+def value_bound(n_points, hidden, mode):
+    """(bound ms, "operations" or "bytes") of K4 on n_points: its FLOPs at
+    the FP32 rate (f32) or the dense bf16 tensor rate (bf16), against 16
+    bytes a point and the weights once (hidden and head weights in bf16 in
+    the bf16 mode)."""
+    h, n_mm = hidden[0], len(hidden) - 1
+    flops = n_points * (2 * 3 * h + n_mm * 2 * h * h + 2 * h)
+    wbytes = 2 if mode == "bf16" else 4
+    nbytes = n_points * 16 + 4 * (4 * h + n_mm * h + 1) + wbytes * (n_mm * h * h + h)
+    peak = PEAK_BF16_FLOPS if mode == "bf16" else PEAK_FP32_FLOPS
+    flop_ms, byte_ms = 1e3 * flops / peak, 1e3 * nbytes / PEAK_BYTES_PER_S
+    return max(flop_ms, byte_ms), ("operations" if flop_ms >= byte_ms else "bytes")
+
+
+@phase("render kernel")
+def render_kernel_phase(cfg, model_path):
+    """K4 against value_reference in both modes on pass 1's entry points,
+    padded and compacted as the tracer's first round gives them to K4."""
+    from diffudf_tpu_torch.fields.siren import SirenSpec
+    from diffudf_tpu_torch.ops import value
+    from diffudf_tpu_torch.render.camera import camera_rays_device
+    from diffudf_tpu_torch.render.tracer import _bucket_for, _padded_rays
+    from diffudf_tpu_torch.train.checkpoint import load_params
+
+    rc = cfg["rendering_config"]
+    spec = SirenSpec(hidden=HIDDEN)
+    params = load_params(model_path, device="cuda")
+    p64 = [{k: v.double() for k, v in layer.items()} for layer in params]
+    noise = np.random.default_rng(cfg.get("seed", 0)).normal(0.5, 0.35)  # pass 1's jitter
+    _, t0, valid = camera_rays_device(rc["width"], rc["height"], rc["fov"], rc["camera_position"],
+                                      noise, rc.get("planes"), device="cuda")
+    n = _padded_rays(len(t0))
+    count = int(valid.sum())
+    bucket = _bucket_for(count, n)
+    active = torch.zeros(n, dtype=torch.bool, device="cuda")
+    active[:len(t0)] = valid
+    entries = torch.zeros((n, 3), device="cuda")
+    entries[:len(t0)] = t0
+    x = entries[torch.argsort((~active).to(torch.uint8), stable=True)[:bucket]].contiguous()
+    print(f"[render-kernel] pass 1: {count} of {len(t0)} rays enter the cube, padded to {n}; "
+          f"K4's first bucket {bucket} points")
+
+    modes = {"f32": None, "bf16": torch.bfloat16}
+    exact = value.value_reference(p64, spec, x.double())
+    failed, out = [], {}
+    for mode, dt in modes.items():
+        got = value.value(params, spec, x, compute_dtype=dt)
+        want = value.value_reference(params, spec, x, compute_dtype=dt)
+        torch.cuda.synchronize()
+        err = (got - want).abs()
+        worst = float((err / (K4_TOL[mode] + RTOL * want.abs())).max())
+        e64 = (got.double() - exact).abs()
+        print(f"[render-kernel] K4 {mode}: max |K4 - plain| {float(err.max()):.3e} (plain: RMS "
+              f"{float(want.square().mean().sqrt()):.3e}, max {float(want.abs().max()):.3e}), "
+              f"limit {K4_TOL[mode]} + {RTOL} |plain|, worst err/limit {worst:.3f}; vs float64: "
+              f"max {float(e64.max()):.3e}, RMS {float(e64.square().mean().sqrt()):.3e}")
+        if not worst <= 1:
+            failed.append(f"K4 {mode} outside its tolerance of the plain version")
+        if mode == "f32":
+            witness("K4 f32", got, want, exact, failed, tag="[render-kernel]")
+        out[mode] = {"max_abs_err": float(err.max())}
+    del exact
+    if failed:
+        raise AssertionError("; ".join(failed))
+
+    for mode, dt in modes.items():
+        ms = cuda_ms(lambda: value.value(params, spec, x, compute_dtype=dt), 20)
+        plain_ms = cuda_ms(lambda: value.value_reference(params, spec, x, compute_dtype=dt), 20)
+        bound, by = value_bound(bucket, HIDDEN, mode)
+        out[mode].update(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by, points=bucket)
+        print(f"[render-kernel] K4 {mode} at {bucket} points: {ms:.3f} ms (median of 20), plain "
+              f"{plain_ms:.3f} ms (median of 20), bound {bound:.3f} ms ({by}), "
+              f"{bound / ms:.1%} of the bound")
+    return out
+
+
+
+
 KERNELS = {
     "K1": ("vgh", "diffudf_tpu_torch/csrc/vgh.cu", "diffudf_tpu/ops/pallas_vgh.py:55 (_vgh_kernel)"),
     "K2": ("vgh_bwd", "diffudf_tpu_torch/csrc/vgh_bwd.cu",
@@ -615,10 +818,13 @@ KERNELS = {
     "K3a": ("vg", "diffudf_tpu_torch/csrc/vg.cu", "diffudf_tpu/ops/pallas_vg.py:25 (_vg_fwd_kernel)"),
     "K3b": ("vg_bwd", "diffudf_tpu_torch/csrc/vg.cu",
             "diffudf_tpu/ops/pallas_vg.py:93 (_vg_bwd_kernel)"),
+    "K4": ("value", "diffudf_tpu_torch/csrc/value.cu",
+           "diffudf_tpu/ops/pallas_value.py:22 (_value_kernel)"),
 }
 
 
 def main():
+    t_start = time.perf_counter()
     device_phase()
     build_phase()
     kernel_phase()
@@ -628,23 +834,35 @@ def main():
         t = timing_phase(model_path, stats["dirs_points"])
         run = train_phase(tmp)
         tk = train_kernel_phase(run["params"], run["cfg_path"])
+        render = render_phase(tmp)
+        rk = render_kernel_phase(render["cfg"], render["model_path"])
     rows = []
     for key, (name, source, replaces) in KERNELS.items():
-        row = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-               "launches": run["launches"][key]}
+        row = {"name": name, "route": "cuda", "source": source, "replaces": replaces}
         if key == "K1":
-            # K1 runs on both paths: its numbers are those at the extraction
+            # K1 runs on every path: its numbers are those at the extraction
             # shape (phase 6); phase 8 prints them at the training shape
-            row.update(launches_by_path={"generate_mc": k1_mc_launches,
-                                         "train": run["launches"]["K1"]},
+            row.update(launches=run["launches"]["K1"],
+                       launches_by_path={"generate_mc": k1_mc_launches,
+                                         "train": run["launches"]["K1"],
+                                         "generate_st": render["launches"]["K1"]},
                        max_abs_err=max(t["max_err"].values()), max_err=t["max_err"],
                        ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
                        bound_by=t["bound_by"], train_shape=tk["K1"])
+        elif key == "K4":
+            # the render's march runs the bf16 mode (fast_march); the f32
+            # mode's numbers come beside them
+            row.update(launches=render["launches"]["K4"], mode="bf16",
+                       **{k: rk["bf16"][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                                     "bound_by", "points")},
+                       f32=rk["f32"])
         else:
+            row["launches"] = run["launches"][key]
             row.update({k: tk[key][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                                 "bound_by")})
         row["library_ms"] = None
         rows.append(row)
+    print(f"[total] {time.perf_counter() - t_start:.2f} s")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -40,9 +40,31 @@ def pack_hess(h: torch.Tensor) -> torch.Tensor:
     return torch.stack([h[..., i, j] for i, j in zip(_TRI_I, _TRI_J)], dim=-1)
 
 
-def value(params, spec: SirenSpec, x: torch.Tensor) -> torch.Tensor:
-    """f(x): (N, 3) -> (N,)."""
-    return siren_apply(params, spec, x)[..., 0]
+def value(params, spec: SirenSpec, x: torch.Tensor, compute_dtype=None) -> torch.Tensor:
+    """f(x): (N, 3) -> (N,).
+
+    ``compute_dtype=torch.bfloat16`` is the JAX package's mixed mode: the
+    first layer stays float32 (input-coordinate precision must survive the
+    w0 = 30 phase amplification), the hidden and head operands are rounded
+    to bf16, and the sums, biases and the exact ``torch.sin`` stay float32.
+    The operands are rounded and multiplied in float32 — products of bf16
+    values are exact there — rather than by a bf16 ``torch.matmul``, which
+    would round its output to bf16.
+    """
+    if compute_dtype is None:
+        return siren_apply(params, spec, x)[..., 0]
+
+    def rnd(t):
+        return t.to(compute_dtype).to(torch.float32)
+
+    freqs = spec.freqs
+    h = x
+    for i, layer in enumerate(params[:-1]):
+        w = layer["w"] if i == 0 else rnd(layer["w"])
+        z = h @ w + layer["b"]
+        a = torch.sin(freqs[i] * z) if spec.activation == "sine" else torch.relu(freqs[i] * z)
+        h = rnd(a)
+    return (h @ rnd(params[-1]["w"]) + params[-1]["b"])[..., 0]
 
 
 def _act(spec: SirenSpec, freq, z):

@@ -1,9 +1,11 @@
 """Chunked field evaluation over large point sets: the torch counterpart of
 ``diffudf_tpu/ops/evaluate.py``.
 
-``evaluate_field`` sends a Hessian request for a uniform-width sine SIREN on
-a CUDA device to the fused kernel :func:`.vgh.vgh` (K1), which masks the
-ragged last tile itself, so the points go in whole.  Everything else runs
+``evaluate_field`` sends a Hessian request on a CUDA device to the fused
+kernel :func:`.vgh.vgh` (K1) when the kernels take the net
+(:func:`.kernel_io.kernel_spec_ok`: a uniform-width sine SIREN whose width
+is a multiple of 32 and at most 256).  K1 masks the ragged last tile
+itself, so the points go in whole.  Everything else runs
 the plain torch functions of :mod:`..autodiff.ops` over fixed-size tiles:
 value-only passes are chains of ``torch.matmul`` (float32, no TF32), as the
 JAX package leaves them to XLA.
@@ -17,6 +19,7 @@ import torch
 
 from ..autodiff.ops import hess_from_packed, value, value_grad, value_grad_hessian_packed
 from ..fields.siren import SirenSpec
+from .kernel_io import kernel_spec_ok
 
 
 class FieldEval(NamedTuple):
@@ -26,13 +29,8 @@ class FieldEval(NamedTuple):
 
 
 def _kernel_ok(spec: SirenSpec, want_hess: bool, device: torch.device) -> bool:
-    """K1 applies: Hessian requested, uniform-width sine net, CUDA device."""
-    return (
-        want_hess
-        and spec.activation == "sine"
-        and len(set(spec.hidden)) == 1
-        and device.type == "cuda"
-    )
+    """K1 applies: Hessian requested, a net the kernels take, CUDA device."""
+    return want_hess and kernel_spec_ok(spec) and device.type == "cuda"
 
 
 def evaluate_field(

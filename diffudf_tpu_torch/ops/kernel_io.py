@@ -49,6 +49,21 @@ def sources(*names) -> list:
     return [os.path.join(CSRC, n) for n in names]
 
 
+def kernel_spec_ok(spec: SirenSpec) -> bool:
+    """Whether the SIREN kernels take ``spec``: a sine SIREN from R³ to R
+    with one hidden width, a multiple of 32 and at most ``MAX_WIDTH``.
+    Selectors send every other net to the plain torch path."""
+    h = spec.hidden[0] if spec.hidden else 0
+    return (
+        spec.activation == "sine"
+        and spec.n_in == 3
+        and spec.n_out == 1
+        and len(set(spec.hidden)) == 1
+        and h % 32 == 0
+        and 0 < h <= MAX_WIDTH
+    )
+
+
 def check_spec(spec: SirenSpec):
     """Raise ValueError unless the kernels' math covers ``spec``: a
     uniform-width sine SIREN from R³ to R."""

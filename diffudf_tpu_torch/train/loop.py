@@ -10,9 +10,12 @@ is drawn from a ``torch.Generator`` there, the loss terms, the best loss and
 the best params are device tensors, and the host reads the logs once per
 chunk.
 
-On a uniform-width sine SIREN the s1 loss runs the fused ops: K1 + K2
-(``ops.vgh.vgh_op``) on the on-surface rows and K3a + K3b (``ops.vg.vg_op``)
-on the others; on a CPU tensor those ops run their plain versions.
+On a net the kernels take (``ops.kernel_io.kernel_spec_ok``: a
+uniform-width sine SIREN of width a multiple of 32, at most 256) the s1
+loss runs the fused ops: K1 + K2 (``ops.vgh.vgh_op``) on the on-surface
+rows and K3a + K3b (``ops.vg.vg_op``) on the others; on a CPU tensor those
+ops run their plain versions.  Any other net takes the plain Taylor-mode
+path, as the JAX package sends it to XLA.
 
 Optimizer: Adam with torch-default hyperparameters (β=(0.9, 0.999),
 ε=1e-8), optax's ``scale_by_adam`` written out, with the learning rate
@@ -36,6 +39,7 @@ import torch
 from ..config import TrainConfig
 from ..data.sampling import TrainingSampler
 from ..fields.siren import SirenSpec, init_siren
+from ..ops.kernel_io import kernel_spec_ok
 from ..ops.vg import vg_op
 from ..ops.vgh import vgh_op
 from .checkpoint import AdamState
@@ -111,7 +115,7 @@ class Trainer:
         self.sampler = sampler
         self.cfg = cfg
         self.device = sampler.device
-        fused = spec.activation == "sine" and len(set(spec.hidden)) == 1
+        fused = kernel_spec_ok(spec)
         self._vgh_op = vgh_op if fused else None
         self._vg_op = vg_op if fused else None
         self.chunk_seconds = []  # (lo, hi, stage, seconds) per chunk of the last run

@@ -1,5 +1,5 @@
-"""The port's CUDA kernels (K1, K2, K3a, K3b) against their plain torch
-versions, on a GPU.
+"""The port's CUDA kernels (K1, K2, K3a, K3b, K4) against their plain torch
+versions, on a GPU, and the plain path for nets the kernels do not take.
 
 Marked ``cuda``; each test skips without a CUDA device.  This file imports
 neither jax nor the JAX package, so it also runs on a machine without them:
@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from diffudf_tpu_torch.fields.siren import SirenSpec, init_siren, params_from_jax
+from diffudf_tpu_torch.ops import value as tval
 from diffudf_tpu_torch.ops import vg as tg
 from diffudf_tpu_torch.ops import vgh as tv
 
@@ -121,3 +122,57 @@ def test_backward_kernel_is_bit_reproducible(kernel):
     torch.cuda.synchronize()
     for a, b in zip(first, second):
         assert torch.equal(a["w"], b["w"]) and torch.equal(a["b"], b["b"])
+
+
+# K4 against value_reference, element by element: TOL + RTOL * |plain|, TOL
+# the Pallas value test's (tests/test_pallas.py: f32 1e-5, bf16 2e-3).
+K4_TOL = {"f32": 1e-5, "bf16": 2e-3}
+K4_DTYPE = {"f32": None, "bf16": torch.bfloat16}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["f32", "bf16"])
+@pytest.mark.parametrize("hidden,n", [((256,) * 8, 262144), ((64,) * 3, 1001)])
+def test_value_kernel_matches_plain_version(hidden, n, mode):
+    """K4 against value_reference on the card, at the march's first bucket
+    and on a ragged last tile."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: K4 has no CPU mode")
+    spec, params, x, _ = _case(hidden, n)
+    before = (tval.launches, tval.points)
+    got = tval.value(params, spec, x, compute_dtype=K4_DTYPE[mode])
+    torch.cuda.synchronize()
+    assert (tval.launches, tval.points) == (before[0] + 1, before[1] + n)
+    want = tval.value_reference(params, spec, x, compute_dtype=K4_DTYPE[mode])
+    assert float(((got - want).abs() / (K4_TOL[mode] + RTOL * want.abs())).max()) <= 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["f32", "bf16"])
+def test_value_kernel_is_bit_reproducible(mode):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    spec, params, x, _ = _case((256,) * 8, 65536, seed=4)
+    first = tval.value(params, spec, x, compute_dtype=K4_DTYPE[mode])
+    second = tval.value(params, spec, x, compute_dtype=K4_DTYPE[mode])
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.cuda
+def test_wide_net_takes_the_plain_path():
+    """A 512-wide net is beyond the kernels (at most 256 columns): on the
+    card evaluate_field runs the plain Taylor-mode path and launches no K1."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from diffudf_tpu_torch.autodiff.ops import value_grad_hessian_packed
+    from diffudf_tpu_torch.ops.evaluate import evaluate_field
+
+    spec, params, x, _ = _case((512,) * 3, 4096)
+    before = tv.launches
+    ev = evaluate_field(params, spec, x, want_hess=True)
+    torch.cuda.synchronize()
+    assert tv.launches == before
+    f, g, _ = value_grad_hessian_packed(params, spec, x)
+    assert torch.equal(ev.f, f) and torch.equal(ev.grad, g)
+    assert bool(torch.isfinite(ev.hess).all())

@@ -129,26 +129,46 @@ def test_quality_presets_match_jax():
         assert tmc.resolve_quality(q, 256, knobs) == jmc.resolve_quality(q, 256, knobs)
 
 
-def test_port_imports_neither_jax_nor_the_jax_package():
+def test_port_imports_neither_jax_nor_the_jax_package(tmp_path):
+    """Every module of the port imports, and a small render runs, without
+    jax or the JAX package; the render also without matplotlib and PIL."""
+    g = np.load(os.path.join(REPO, "tests", "golden", "st_image_golden.npz"))
+    spec = SirenSpec(hidden=(64, 64, 64), w0=30.0)
+    model = str(tmp_path / "model.npz")
+    jckpt.save_params(model, [{"w": g[f"w{i}"], "b": g[f"b{i}"]} for i in range(4)])
+    cfg = tmp_path / "st.json"
+    cfg.write_text(json.dumps({
+        "network_config": {"gt_mode": "tanh", "alpha": 10.0, "model_path": model,
+                           "hidden_layer_nodes": list(spec.hidden), "w0": spec.w0},
+        "rendering_config": {"width": 16, "height": 12, "fov": 60, "surface_threshold": 0.008,
+                             "camera_position": [0.0, 0.0, 2.0], "shininess": 40,
+                             "light_position": [1.0, 2.0, 4.0], "max_iterations": 60,
+                             "plot_curvatures": "mean", "output_path": str(tmp_path / "st.png")},
+    }))
     code = (
         "import pkgutil, importlib, sys, diffudf_tpu_torch\n"
         "for m in pkgutil.walk_packages(diffudf_tpu_torch.__path__, 'diffudf_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
-        "bad = [k for k in sys.modules if k == 'jax' or k.startswith('jax.')\n"
-        "       or k == 'diffudf_tpu' or k.startswith('diffudf_tpu.')]\n"
+        "from diffudf_tpu_torch.cli import generate_st\n"
+        "generate_st.main([sys.argv[1], '--device', 'cpu'])\n"
+        "bad = [k for k in sys.modules if k.split('.')[0] in\n"
+        "       ('jax', 'diffudf_tpu', 'matplotlib', 'PIL')]\n"
         "assert not bad, bad\n"
         "print(' '.join(k for k in sys.modules if k.startswith('diffudf_tpu_torch')))\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
-    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+    out = subprocess.run([sys.executable, "-c", code, str(cfg)], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    loaded = set(out.stdout.split())
+    loaded = set(out.stdout.splitlines()[-1].split())  # after the render's Stats line
     assert len(loaded) > 20
-    # the training slice's modules are among those walked and imported
+    assert os.path.exists(tmp_path / "st.png")
+    # the training and render slices' modules are among those walked and imported
     for name in ("cli.train", "cli.preprocess", "config", "data.mesh_distance",
                  "data.normalize", "data.oracle_cache", "data.sampling", "ops.kernel_io",
-                 "ops.vg", "train.losses", "train.loop", "train.schedule", "utils.metrics"):
+                 "ops.vg", "train.losses", "train.loop", "train.schedule", "utils.metrics",
+                 "autodiff.curvature", "cli.generate_st", "ops.value", "render.camera",
+                 "render.png", "render.shading", "render.tracer"):
         assert "diffudf_tpu_torch." + name in loaded, name
 
 

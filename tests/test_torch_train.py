@@ -251,3 +251,25 @@ def test_cli_trains_across_the_stage_boundary(tmp_path, monkeypatch):
         json.dump(cfg, fh)
     _, stats = tcli.main(["cfg.json", "--device", "cpu", "--resume"])
     assert stats.get("s1_steps", 0) == 0 and stats["s2_steps"] == 1
+
+
+@pytest.mark.parametrize("stage", ["s1", "s2", "siren"])
+def test_loss_terms_match_reference_golden(stage):
+    """The port's losses against the reference's own values in
+    tests/golden/field_losses_golden.npz (32-wide net, 256 points), at
+    tests/test_golden_losses.py's tolerance: rel 2e-3, abs 1e-4."""
+    g = np.load(os.path.join(REPO, "tests", "golden", "field_losses_golden.npz"))
+    n = sum(1 for k in g.files if k[0] == "w" and k[1:].isdigit())
+    params = [{"w": torch.from_numpy(g[f"w{i}"]), "b": torch.from_numpy(g[f"b{i}"])}
+              for i in range(n)]
+    spec = SirenSpec(hidden=tuple(g[f"w{i}"].shape[1] for i in range(n - 1)),
+                     w0=float(g["freq_w0"]))
+    pts, nrm, sdf = (torch.from_numpy(g[k][0]) for k in ("pts", "normals", "sdf"))
+    weights = tuple(float(w) for w in g[f"{stage}_weights"])
+    fn = {"s1": tl.loss_s1, "s2": tl.loss_s2, "siren": tl.loss_siren}[stage]
+    terms = fn(params, spec, pts, nrm, sdf, weights, float(g["alpha"]))
+    prefix = f"loss_{stage}_"
+    assert set(terms) == {k[len(prefix):] for k in g.files if k.startswith(prefix)}
+    for k, v in terms.items():
+        ref = float(g[prefix + k])
+        assert float(v) == pytest.approx(ref, rel=2e-3, abs=1e-4), (stage, k, float(v), ref)
