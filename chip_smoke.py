@@ -4,18 +4,20 @@
     python3 chip_smoke.py
 
 Drives ``diffudf_tpu_torch`` alone (no JAX, no ``diffudf_tpu``) through its
-three paths: mesh extraction, ``generate_mc`` at N=256 with both MeshUDF and
+four paths: mesh extraction, ``generate_mc`` at N=256 with both MeshUDF and
 CAP on an 8x256 SIREN fitted in process to a sphere; training, ``cli.train``
-on the point-cloud torus recipe (8x256, batch 30,000, 3000 epochs); and
-rendering, ``cli.generate_st`` at 720x720 with 3 passes on the trained
-torus.  It holds every kernel of those paths against its plain torch
-version: K1 (f, grad f, Hessian), K2 (its VJP), K3a (f, grad f), K3b (its
-VJP) and K4 (f alone, the march's value).  Phases, in order, each printing
-its seconds:
+on the point-cloud torus recipe (8x256, batch 30,000, 3000 epochs) with its
+slice figure and the Chamfer evaluation of its meshes; rendering,
+``cli.generate_st`` at 720x720 with 3 passes on the trained torus; and the
+slice figures of ``cli.generate_df`` at width 512 on the trained torus.  It
+holds every kernel of those paths against its plain torch version: K1 (f,
+grad f, Hessian), K2 (its VJP), K3a (f, grad f), K3b (its VJP), K4 (f
+alone, the march's value) and K5 (the nearest cloud point's distance).
+Phases, in order, each printing its seconds:
 
   1. device   — needs CUDA; prints the nvidia-smi name and power limit,
                 and whether the optional matplotlib and PIL import;
-  2. build    — nvcc (K1; K2; K3a and K3b; K4) and g++ (sign voting), all
+  2. build    — nvcc (K1; K2; K3a and K3b; K4; K5) and g++ (sign voting), all
                 started together, into the package's ignored build
                 directory, with each ptxas register report;
   3. kernel   — K1 vs ``vgh_reference`` on 65,536 points of a random-init
@@ -34,12 +36,17 @@ its seconds:
   7. train    — preprocesses data/demo/torus.obj (100k points) and runs
                 ``diffudf_tpu_torch.cli.train.main`` on the recipe of
                 results/results_demo_pc.csv; gates: K1, K2, K3a and K3b
-                each launched once per s1 step (K1 once more, by the final
-                extraction), finite losses, the s1 loss of the last 50 s1
-                epochs below that of the first 50, and the Chamfer-L1 of
-                both final meshes against the 100k-point cloud within the
-                torus protocol floor; prints s1 and s2 steps/s beside the
-                original DiffUDF's 7.54;
+                each launched once per s1 step (K1 once more for the slice
+                figure and once by the final extraction), K5 once (the
+                figure's plane distances), both figure PNGs with 512x512
+                panels, finite losses, the s1 loss of the last 50 s1 epochs
+                below that of the first 50, and the Chamfer-L1 of both final
+                meshes against the 100k-point cloud within the torus
+                protocol floor; then the port's ``eval/chamfer.py`` scores
+                the meshes with both backends (L1 within 1e-6 of the
+                script's own, L2 and NC of the two backends within 1e-4 of
+                each other); prints s1 and s2 steps/s beside the original
+                DiffUDF's 7.54;
   8. training kernels — K2, K3a and K3b against their plain versions,
                 element by element, and against the plain versions in
                 float64, on the trained net and a batch of its sampler at
@@ -58,7 +65,21 @@ its seconds:
  10. render kernel — K4 against its plain version in both modes, element
                 by element, and in float32 against the plain version in
                 float64, on pass 1's entry points at the first round's
-                bucket shape; then their times and bounds.
+                bucket shape; then their times and bounds;
+ 11. figures  — ``diffudf_tpu_torch.cli.generate_df.main`` at width 512 on
+                the trained torus against its point cloud (one K1 and one
+                K5 launch) and against its normalised mesh ``torus_t.obj``
+                (one K1 launch, the brute triangle sweep); gates: the launch
+                counts and both PNGs with 512x512 panels; prints the
+                ``Stats:`` lines;
+ 12. distance kernel — K5 against its plain version and the plain version
+                in float64, element by element within 1e-4, at the figure's
+                262,144 plane queries against the 100k-point torus cloud;
+                prints the max and RMS errors, the error K5's own expanded
+                form would have had, and the median of 20 CUDA-event times
+                of K5, its plain version and chunked ``torch.cdist`` +
+                ``amin`` beside the bound; then K1 at the figure's 262,144
+                points.
 
 Then a ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}`` line.
 Any failed phase raises, and the script exits non-zero without the last
@@ -128,6 +149,15 @@ MAX_HIT_FLIPS = 0.05  # float32 vs bf16 march: hit pixels that differ, share of 
 # the Pallas value test's (tests/test_pallas.py: f32 1e-5, bf16 2e-3).
 K4_TOL = {"f32": 1e-5, "bf16": 2e-3}
 PEAK_BF16_FLOPS = 989e12  # dense bf16 tensor rate, H100 SXM at 700 W
+# Phases 7, 11 and 12: the slice figure's width (JAX cli/train.py:287-292 and
+# generate_df's default), K5's tolerance (tests/test_pallas.py::
+# TestPallasDistance), and the agreement of eval/chamfer.py with the script's
+# own Chamfer-L1 (float64 k-d tree) and of its two backends on L2 and NC
+# (the device scan's L2 is the float32 expanded form; NC moves where
+# near-tied neighbours are taken in another order).
+FIGURE_WIDTH = 512
+K5_TOL = 1e-4
+CHAMFER_RTOL = {"L1": 1e-6, "L2": 1e-4, "NC": 1e-4}
 
 
 def phase(name):
@@ -220,11 +250,11 @@ def device_phase():
 def build_phase():
     """Every native library at once: one compiler process per source."""
     from diffudf_tpu_torch.native import udf_mc
-    from diffudf_tpu_torch.ops import value, vg, vgh
+    from diffudf_tpu_torch.ops import min_distance, value, vg, vgh
 
     builds = {"vgh (nvcc, K1)": vgh.build, "vgh_bwd (nvcc, K2)": vgh.build_bwd,
               "vg (nvcc, K3a + K3b)": vg.build, "value (nvcc, K4)": value.build,
-              "udf_mc (g++)": udf_mc.build}
+              "min_distance (nvcc, K5)": min_distance.build, "udf_mc (g++)": udf_mc.build}
 
     def timed(fn):
         t0 = time.perf_counter()
@@ -472,7 +502,7 @@ def train_phase(tmp):
     the kernel launch counts of this run."""
     from diffudf_tpu_torch.cli import preprocess, train
     from diffudf_tpu_torch.data.mesh_io import load_point_cloud
-    from diffudf_tpu_torch.ops import vg, vgh
+    from diffudf_tpu_torch.ops import min_distance, vg, vgh
 
     data_dir = os.path.join(tmp, "demo")
     t0 = time.perf_counter()
@@ -485,9 +515,10 @@ def train_phase(tmp):
         json.dump(cfg, fh)
 
     vgh.launches = vgh.bwd_launches = vg.launches = vg.bwd_launches = 0
+    min_distance.launches = min_distance.queries = 0
     (pipeline_s, meshes, state), stats = train.main([cfg_path])
     launches = {"K1": vgh.launches, "K2": vgh.bwd_launches, "K3a": vg.launches,
-                "K3b": vg.bwd_launches}
+                "K3b": vg.bwd_launches, "K5": min_distance.launches}
 
     n_s1, n_s2 = stats["s1_steps"], stats["s2_steps"]
     s1_rate, s2_rate = n_s1 / stats["s1_s"], n_s2 / stats["s2_s"]
@@ -496,12 +527,16 @@ def train_phase(tmp):
           f"({s2_rate:.2f} steps/s), all steps {(n_s1 + n_s2) / stats['train_s']:.2f} steps/s "
           f"(the original DiffUDF: {BASELINE_STEPS_PER_S} steps/s); pipeline "
           f"{pipeline_s:.2f} s; extraction {json.dumps(stats['mesh'])}")
-    print(f"[train] kernel launches in this run: {launches}")
+    print(f"[train] kernel launches in this run: {launches}; K5 queries {min_distance.queries}")
+    print(f"[train] slice figure at width {train.SLICE_WIDTH}: {json.dumps(stats['figure'])}")
     extraction_k1 = 1 if stats["mesh"]["dirs_points"] > 0 else 0
-    want = {"K1": n_s1 + extraction_k1, "K2": n_s1, "K3a": n_s1, "K3b": n_s1}
+    want = {"K1": n_s1 + 1 + extraction_k1, "K2": n_s1, "K3a": n_s1, "K3b": n_s1, "K5": 1}
     if launches != want:
-        raise AssertionError(f"launches {launches} != once per s1 step {want} "
-                             f"(K1 plus {extraction_k1} by the final extraction)")
+        raise AssertionError(f"launches {launches} != {want}: once per s1 step, K1 once more "
+                             f"for the slice figure and {extraction_k1} by the final "
+                             f"extraction, K5 once for the figure")
+    check_figure(os.path.join(tmp, "runs", "torus", "reconstructions"), train.SLICE_WIDTH,
+                 "[train]")
 
     logs = losses_table(os.path.join(tmp, "runs", "torus", "losses.csv"))
     total = logs["total"]
@@ -530,10 +565,57 @@ def train_phase(tmp):
     for name, c in chamfer.items():
         if not c <= MAX_TORUS_CHAMFER_L1:
             raise AssertionError(f"{name} Chamfer-L1 {c} > {MAX_TORUS_CHAMFER_L1}")
+    scores = score_meshes(meshes, load_point_cloud(cfg["dataset"] + "_pc.ply"), chamfer)
     params = [{k: v.detach().contiguous() for k, v in layer.items()}
               for layer in state.best_params]
     return {"params": params, "cfg_path": cfg_path, "launches": launches,
-            "s1_steps_per_s": s1_rate, "s2_steps_per_s": s2_rate, "chamfer": chamfer}
+            "s1_steps_per_s": s1_rate, "s2_steps_per_s": s2_rate, "chamfer": chamfer,
+            "scores": scores, "data_dir": data_dir}
+
+
+def png_size(path):
+    """(width, height) from a PNG file's IHDR chunk."""
+    with open(path, "rb") as fh:
+        head = fh.read(24)
+    if head[:8] != b"\x89PNG\r\n\x1a\n" or head[12:16] != b"IHDR":
+        raise AssertionError(f"{path} is not a PNG file")
+    return int.from_bytes(head[16:20], "big"), int.from_bytes(head[20:24], "big")
+
+
+def check_figure(out_dir, width, tag):
+    """Both slice-figure PNGs: the 2x2 mosaic of width x width panels and
+    the width x width normal map."""
+    sizes = {name: png_size(os.path.join(out_dir, name))
+             for name in ("distance_fields.png", "pred_grad.png")}
+    want = {"distance_fields.png": (2 * width, 2 * width), "pred_grad.png": (width, width)}
+    print(f"{tag} figure PNGs: {sizes}")
+    if sizes != want:
+        raise AssertionError(f"figure PNG sizes {sizes} != {want}")
+
+
+def score_meshes(meshes, cloud, chamfer):
+    """Chamfer-L1/L2 and NC of the meshes by the port's eval/chamfer.py,
+    host and device backends, against the script's own Chamfer-L1."""
+    from diffudf_tpu_torch.eval.chamfer import chamfer_distance
+
+    scores, failed = {}, []
+    for name, m in zip(("MU", "CAP"), meshes):
+        v, vn = np.asarray(m.vertices, np.float64), m.compute_vertex_normals()
+        for backend in ("host", "device"):
+            l1, nc = chamfer_distance(v, cloud.points, vn, cloud.normals, norm=1, backend=backend)
+            l2, _ = chamfer_distance(v, cloud.points, vn, cloud.normals, norm=2, backend=backend)
+            scores[f"{name}_{backend}"] = {"L1": l1, "L2": l2, "NC": nc}
+            if not abs(l1 / chamfer[name] - 1) <= CHAMFER_RTOL["L1"]:
+                failed.append(f"{name} {backend} L1 {l1} vs the script's {chamfer[name]}")
+        h, d = scores[f"{name}_host"], scores[f"{name}_device"]
+        for k in ("L2", "NC"):
+            if not abs(d[k] / h[k] - 1) <= CHAMFER_RTOL[k]:
+                failed.append(f"{name} {k}: device {d[k]} vs host {h[k]}")
+        print(f"[train] eval/chamfer.py {name}: host L1 {h['L1']:.6f} L2 {h['L2']:.4e} NC "
+              f"{h['NC']:.6f}; device L1 {d['L1']:.6f} L2 {d['L2']:.4e} NC {d['NC']:.6f}")
+    if failed:
+        raise AssertionError("; ".join(failed))
+    return scores
 
 
 def witness(name, got, want, exact, failed, tag="[train-kernels]"):
@@ -809,6 +891,101 @@ def render_kernel_phase(cfg, model_path):
     return out
 
 
+@phase("figures")
+def figures_phase(tmp, data_dir):
+    """cli.generate_df.main at FIGURE_WIDTH on the trained torus against its
+    point cloud (K5) and its normalised mesh (the triangle sweep)."""
+    from diffudf_tpu_torch.cli import generate_df
+    from diffudf_tpu_torch.ops import min_distance, value, vg, vgh
+
+    model_path = os.path.join(tmp, "runs", "torus", "models", "model_best.npz")
+    out = {}
+    for geometry in ("torus_pc.ply", "torus_t.obj"):
+        out_dir = os.path.join(tmp, "figures", geometry.replace(".", "_"))
+        vgh.launches = vgh.bwd_launches = vg.launches = vg.bwd_launches = value.launches = 0
+        min_distance.launches = 0
+        stats = generate_df.main([os.path.join(data_dir, geometry), model_path, out_dir,
+                                  "-w", str(FIGURE_WIDTH), "-a", str(RECIPE["alpha"])])
+        launches = {"K1": vgh.launches, "K2": vgh.bwd_launches, "K3a": vg.launches,
+                    "K3b": vg.bwd_launches, "K4": value.launches, "K5": min_distance.launches}
+        want = {"K1": 1, "K2": 0, "K3a": 0, "K3b": 0, "K4": 0,
+                "K5": 1 if geometry.endswith(".ply") else 0}
+        print(f"[figures] {geometry} at width {FIGURE_WIDTH}: predict {stats['predict_s']:.3f} s, "
+              f"GT distances {stats['gt_s']:.3f} s, drawing {stats['render_s']:.3f} s; kernel "
+              f"launches {launches}", flush=True)
+        if launches != want:
+            raise AssertionError(f"launches {launches} != {want}: K1 once for the prediction, "
+                                 f"K5 once for a point cloud's distances")
+        check_figure(out_dir, FIGURE_WIDTH, "[figures]")
+        out[geometry] = {"stats": stats, "launches": launches}
+    return out
+
+
+def min_distance_bound(n_queries, n_cloud):
+    """(bound ms, "operations" or "bytes") of K5: 3 FMAs (6 FLOP) a pair at
+    the FP32 rate against the queries and cloud read once and the distances
+    written once."""
+    flops = 6 * n_queries * n_cloud
+    nbytes = 4 * (3 * n_queries + 3 * n_cloud + n_queries)
+    flop_ms, byte_ms = 1e3 * flops / PEAK_FP32_FLOPS, 1e3 * nbytes / PEAK_BYTES_PER_S
+    return max(flop_ms, byte_ms), ("operations" if flop_ms >= byte_ms else "bytes")
+
+
+@phase("distance kernel")
+def distance_kernel_phase(data_dir, params):
+    """K5 against its plain version and the float64 witness at the figure's
+    shape: the plane's FIGURE_WIDTH^2 queries against the torus cloud."""
+    from diffudf_tpu_torch.data.mesh_io import load_point_cloud
+    from diffudf_tpu_torch.fields.siren import SirenSpec
+    from diffudf_tpu_torch.grid.slices import plane_samples
+    from diffudf_tpu_torch.ops import min_distance, vgh
+
+    points = load_point_cloud(os.path.join(data_dir, "torus_pc.ply")).points
+    cloud = torch.as_tensor(np.ascontiguousarray(points, np.float32), device="cuda")
+    q = torch.as_tensor(plane_samples(FIGURE_WIDTH), device="cuda")
+    nq, m = len(q), len(cloud)
+    got = min_distance.min_distance(q, cloud)
+    want = min_distance.min_distance_reference(q, cloud)
+    exact = min_distance.min_distance_reference(q.double(), cloud.double())
+    # the value K5's expanded form gives, sqrt(min rank + |q|^2): what the
+    # argmin and the exact recompute avoid
+    expanded = torch.cat([torch.sqrt(torch.clamp(min_distance.rank_reference(c, cloud)[0]
+                                                 + (c * c).sum(1), min=0.0))
+                          for c in q.split(min_distance.QUERY_TILE)])
+    torch.cuda.synchronize()
+    err = {"K5 - plain": (got - want).double().abs()}
+    for name, a in (("K5", got), ("plain", want), ("expanded form", expanded)):
+        err[f"{name} - float64"] = (a.double() - exact).abs()
+    report = {k: (float(e.max()), float(e.square().mean().sqrt())) for k, e in err.items()}
+    near = exact < 0.01
+    print(f"[distance-kernel] {nq} plane queries x {m} cloud points; {int(near.sum())} queries "
+          f"within 0.01 of the cloud (nearest {float(exact.min()):.3e})")
+    for k, (mx, rms) in report.items():
+        print(f"[distance-kernel] |{k}|: max {mx:.3e}, RMS {rms:.3e}")
+    failed = [k for k in ("K5 - plain", "K5 - float64") if not report[k][0] <= K5_TOL]
+    if failed or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"K5 outside {K5_TOL} ({failed}) or not finite")
+    del want, exact, expanded, err
+
+    ms = cuda_ms(lambda: min_distance.min_distance(q, cloud), 20)
+    plain_ms = cuda_ms(lambda: min_distance.min_distance_reference(q, cloud), 20)
+    cdist_ms = cuda_ms(lambda: torch.cat([torch.cdist(c, cloud).amin(1)
+                                          for c in q.split(min_distance.QUERY_TILE)]), 20)
+    bound, by = min_distance_bound(nq, m)
+    print(f"[distance-kernel] K5 {ms:.3f} ms (median of 20), plain {plain_ms:.3f} ms (median of "
+          f"20), torch.cdist + amin over {min_distance.QUERY_TILE}-query chunks {cdist_ms:.3f} ms "
+          f"(median of 20), bound {bound:.3f} ms ({by}), {bound / ms:.1%} of the bound")
+
+    spec = SirenSpec(hidden=HIDDEN)
+    k1_ms = cuda_ms(lambda: vgh.vgh(params, spec, q), 20)
+    k1_bound, k1_by = siren_kernel_bound(nq, HIDDEN, 10, 1, 4 * (3 + 16), 1)
+    print(f"[distance-kernel] K1 at the figure's {nq} points: {k1_ms:.3f} ms (median of 20), "
+          f"bound {k1_bound:.3f} ms ({k1_by}), {k1_bound / k1_ms:.1%} of the bound")
+    return {"max_abs_err": report["K5 - plain"][0], "witness_max_err": report["K5 - float64"][0],
+            "expanded_form_max_err": report["expanded form - float64"][0], "ms": ms,
+            "plain_ms": plain_ms, "cdist_ms": cdist_ms, "bound_ms": bound, "bound_by": by,
+            "queries": nq, "cloud": m, "k1_figure": {"points": nq, "ms": k1_ms,
+                                                     "bound_ms": k1_bound}}
 
 
 KERNELS = {
@@ -820,6 +997,8 @@ KERNELS = {
             "diffudf_tpu/ops/pallas_vg.py:93 (_vg_bwd_kernel)"),
     "K4": ("value", "diffudf_tpu_torch/csrc/value.cu",
            "diffudf_tpu/ops/pallas_value.py:22 (_value_kernel)"),
+    "K5": ("min_distance", "diffudf_tpu_torch/csrc/min_distance.cu",
+           "diffudf_tpu/ops/pallas_distance.py:28 (_min_dist_kernel)"),
 }
 
 
@@ -836,6 +1015,8 @@ def main():
         tk = train_kernel_phase(run["params"], run["cfg_path"])
         render = render_phase(tmp)
         rk = render_kernel_phase(render["cfg"], render["model_path"])
+        figs = figures_phase(tmp, run["data_dir"])
+        dk = distance_kernel_phase(run["data_dir"], run["params"])
     rows = []
     for key, (name, source, replaces) in KERNELS.items():
         row = {"name": name, "route": "cuda", "source": source, "replaces": replaces}
@@ -845,10 +1026,12 @@ def main():
             row.update(launches=run["launches"]["K1"],
                        launches_by_path={"generate_mc": k1_mc_launches,
                                          "train": run["launches"]["K1"],
-                                         "generate_st": render["launches"]["K1"]},
+                                         "generate_st": render["launches"]["K1"],
+                                         "generate_df": figs["torus_pc.ply"]["launches"]["K1"]},
                        max_abs_err=max(t["max_err"].values()), max_err=t["max_err"],
                        ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
-                       bound_by=t["bound_by"], train_shape=tk["K1"])
+                       bound_by=t["bound_by"], train_shape=tk["K1"],
+                       figure_shape=dk["k1_figure"])
         elif key == "K4":
             # the render's march runs the bf16 mode (fast_march); the f32
             # mode's numbers come beside them
@@ -856,6 +1039,16 @@ def main():
                        **{k: rk["bf16"][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                                      "bound_by", "points")},
                        f32=rk["f32"])
+        elif key == "K5":
+            # no single PyTorch call computes it: torch.cdist + amin (two
+            # calls, over query chunks) is timed beside it
+            row.update(launches=run["launches"]["K5"],
+                       launches_by_path={"train": run["launches"]["K5"],
+                                         "generate_df": figs["torus_pc.ply"]["launches"]["K5"]},
+                       **{k: dk[k] for k in ("max_abs_err", "witness_max_err",
+                                             "expanded_form_max_err", "ms", "plain_ms",
+                                             "bound_ms", "bound_by", "queries", "cloud")},
+                       cdist_amin_chunked_ms=dk["cdist_ms"])
         else:
             row["launches"] = run["launches"][key]
             row.update({k: tk[key][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",

@@ -6,11 +6,14 @@ The torch counterpart of ``diffudf_tpu/cli/train.py``:
 
 ``setup_train`` follows the JAX package's pipeline: output dirs and
 ``params.json``, the sampler and its oracle, staged training, per-chunk
-checkpoints (best / current / periodic), ``losses.csv``, the final model and
-the final marching-cubes reconstructions (``cli/generate_mc.py::run_mc``).
-Point-cloud input (``"onlyPCloud": true``) only: the mesh-input oracle, the
-overlapped oracle build, data parallelism and the slice figure are not
-ported yet, and a mesh-mode config raises NotImplementedError.
+checkpoints (best / current / periodic), ``losses.csv``, the final model,
+the slice figure of the best params at width 512 (``distance_fields.png``
+and ``pred_grad.png``: one K1 launch, and the brute nearest-point distance
+of the plane to the cloud, one K5 launch) and the final marching-cubes
+reconstructions (``cli/generate_mc.py::run_mc``).  Point-cloud input
+(``"onlyPCloud": true``) only: the mesh-input oracle, the overlapped oracle
+build and data parallelism are not ported yet, and a mesh-mode config
+raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -21,14 +24,19 @@ import os
 import os.path as osp
 import time
 
+import numpy as np
 import torch
 
 from ..config import TrainConfig
+from ..data.mesh_distance import point_cloud_distance
 from ..data.mesh_io import load_point_cloud
 from ..data.sampling import TrainingSampler
 from ..train import checkpoint as ckpt
 from ..train.loop import Trainer
 from ..utils.metrics import ScalarLogger
+from .generate_df import slice_figure
+
+SLICE_WIDTH = 512  # the figure's plane samples a side (JAX ``train.py:287-292``)
 
 
 def build_sampler(cfg: TrainConfig, device="cuda"):
@@ -53,6 +61,23 @@ def build_sampler(cfg: TrainConfig, device="cuda"):
         cache_path=cache, device=device,
     )
     return sampler, pc
+
+
+def gt_plane_distances(cfg: TrainConfig, pc, samples: torch.Tensor) -> torch.Tensor:
+    """Unsigned GT distances of the slice plane's samples (for the figure),
+    on the samples' device.
+
+    pc mode: the brute nearest-point distance to the full cloud (K5 on
+    CUDA), as the JAX package's pc branch; the pc-mode candidate table is
+    not reused, since it has no off-surface exactness guarantee (the JAX
+    package measured up to 1.6e-2 plane error with it).  The mesh branches
+    (the triangle table, the pruned sweep) wait for the mesh-input oracle."""
+    if not cfg.only_pcloud:
+        raise NotImplementedError(
+            "the mesh-input slice distances are not ported yet (ROADMAP.md, "
+            "'Modules to port', item 'Mesh-input oracle')")
+    cloud = torch.as_tensor(np.asarray(pc.points, np.float32), device=samples.device)
+    return point_cloud_distance(samples, cloud).abs()
 
 
 def generate_final_meshes(params, spec, cfg: TrainConfig, out_dir: str, stats=None):
@@ -94,7 +119,7 @@ def setup_train(cfg: TrainConfig, make_meshes: bool = True, verbose: bool = True
         json.dump(cfg.to_dict(), fh, indent=4)
 
     t_pipeline = time.perf_counter()
-    sampler, _ = build_sampler(cfg, device=device)
+    sampler, pc = build_sampler(cfg, device=device)
     stats["oracle_s"] = time.perf_counter() - t_pipeline
     spec = cfg.network.to_spec()
 
@@ -157,6 +182,12 @@ def setup_train(cfg: TrainConfig, make_meshes: bool = True, verbose: bool = True
     logger.flush_csv("losses.csv", exclude=("lr", "epoch_loss"))
     logger.close()
     ckpt.save_params(osp.join(models_dir, "model_final.npz"), state.params, spec)
+
+    if verbose:
+        print("Generating distance field slices")
+    stats["figure"] = slice_figure(state.best_params, spec,
+                                   lambda samples: gt_plane_distances(cfg, pc, samples),
+                                   cfg.gt_mode, cfg.alpha, SLICE_WIDTH, recon_dir)
 
     meshes = None
     if make_meshes and cfg.resolution:

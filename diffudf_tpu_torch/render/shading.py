@@ -1,11 +1,12 @@
-"""Shading models, Blinn-Phong and anisotropic Ward, and the RdYlBu
-colormap of the curvature plots: host numpy, a copy of
-``diffudf_tpu/render/shading.py``.
+"""Shading models, Blinn-Phong and anisotropic Ward, the RdYlBu colormap of
+the curvature plots and the bwr_r colormap of the slice figure: host numpy,
+a copy of ``diffudf_tpu/render/shading.py``.
 
 Same formulas as the reference: grey albedo (0.7 diffuse / 0.7 specular /
 0.2 ambient), the 0.9 clip, the Ward weight with the principal-direction
-anisotropy terms.  :func:`rdylbu` is this package's own copy of
-matplotlib's ``RdYlBu`` colormap, so a render needs no matplotlib.
+anisotropy terms.  :func:`rdylbu` and :func:`bwr_r` are this package's own
+copies of matplotlib's ``RdYlBu`` and ``bwr_r`` colormaps, so neither a
+render nor a figure needs matplotlib.
 """
 
 from __future__ import annotations
@@ -26,36 +27,49 @@ _RDYLBU_ANCHORS = np.array([
     (0.27058823529411763, 0.4588235294117647, 0.7058823529411765),
     (0.19215686274509805, 0.21176470588235294, 0.5843137254901961),
 ])
+# matplotlib's bwr_r: bwr's three colours (blue, white, red) reversed
+_BWR_R_ANCHORS = np.array([(1.0, 0.0, 0.0), (1.0, 1.0, 1.0), (0.0, 0.0, 1.0)])
 _LUT_SIZE = 256
 
 
-def _rdylbu_table(n: int = _LUT_SIZE) -> np.ndarray:
-    """(n, 3) lookup table: entry i linearly interpolates the anchors at
-    i / (n − 1), with matplotlib's arithmetic, so the values agree to the
-    bit."""
-    x = np.linspace(0.0, 1.0, len(_RDYLBU_ANCHORS)) * (n - 1)
+def _lut(anchors: np.ndarray, n: int = _LUT_SIZE) -> np.ndarray:
+    """(n, 3) lookup table: entry i linearly interpolates the anchors, spaced
+    evenly over [0, 1], at i / (n − 1), with matplotlib's arithmetic, so
+    the values agree to the bit."""
+    x = np.linspace(0.0, 1.0, len(anchors)) * (n - 1)
     xind = (n - 1) * np.linspace(0.0, 1.0, n)
     ind = np.searchsorted(x, xind)[1:-1]
     dist = (xind[1:-1] - x[ind - 1]) / (x[ind] - x[ind - 1])
     cols = []
-    for y in _RDYLBU_ANCHORS.T:
+    for y in anchors.T:
         lut = np.concatenate([[y[0]], dist * (y[ind] - y[ind - 1]) + y[ind - 1], [y[-1]]])
         cols.append(np.clip(lut, 0.0, 1.0))
     return np.stack(cols, axis=-1)
 
 
-def rdylbu(x) -> np.ndarray:
-    """RGB (..., 3) of values in [0, 1], as ``matplotlib.colormaps
-    ["RdYlBu"](x)[..., :3]``: entry ``int(x · 256)``, 1.0 and above to the
-    last entry, below 0 to the first, NaN to black."""
+def _lookup(table: np.ndarray, x) -> np.ndarray:
+    """RGB (..., 3) of values in [0, 1], as a matplotlib colormap gives
+    them: entry ``int(x · 256)``, 1.0 and above to the last entry, below 0
+    to the first, NaN to black."""
     xa = np.array(x, copy=True)
     xa *= _LUT_SIZE
     bad = np.isnan(xa)
     with np.errstate(invalid="ignore"):
         idx = np.clip(np.where(bad, 0, xa), 0, _LUT_SIZE - 1).astype(int)
-    rgb = _rdylbu_table()[idx]
+    rgb = table[idx]
     rgb[bad] = 0.0
     return rgb
+
+
+def rdylbu(x) -> np.ndarray:
+    """``matplotlib.colormaps["RdYlBu"](x)[..., :3]`` (see :func:`_lookup`)."""
+    return _lookup(_lut(_RDYLBU_ANCHORS), x)
+
+
+def bwr_r(x) -> np.ndarray:
+    """``matplotlib.colormaps["bwr_r"](x)[..., :3]`` (see :func:`_lookup`):
+    the slice figure's colormap."""
+    return _lookup(_lut(_BWR_R_ANCHORS), x)
 
 
 def _normalize(a):

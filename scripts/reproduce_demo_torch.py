@@ -1,0 +1,90 @@
+#!/usr/bin/env python
+"""The five-shape point-cloud demo sweep through the PyTorch/CUDA port.
+
+The port's counterpart of ``python scripts/reproduce_demo.py --mode pc``:
+preprocesses each committed ``data/demo/<shape>.obj`` with the port's
+``cli.preprocess`` (100k surface samples) into its own subdirectory, drops
+the ``_t.obj`` so every shape trains from its point cloud (``onlyPCloud``),
+and runs ``python -m diffudf_tpu_torch.cli.quantitative`` over them with the
+JAX package's ``DEFAULT_CONFIG`` recipe.  Needs a GPU:
+
+    python scripts/reproduce_demo_torch.py --out DIR [--keep-model torus]
+
+``--config``, ``--no-provenance`` and ``--device cpu`` pass through to
+``cli.quantitative`` (a small config and ``--samples`` make a CPU rehearsal).
+
+Writes ``results.csv`` and ``results_provenance.json`` to ``--out`` and
+prints each shape's Chamfer-L1 beside its protocol floor in
+``results/protocol_floors_demo.json`` and the JAX package's row in
+``results/results_demo_pc.csv``.  ``--keep-model`` copies a shape's
+``model_best`` checkpoint to ``--out`` as well.
+"""
+
+import argparse
+import csv
+import json
+import os
+import os.path as osp
+import shutil
+import sys
+import tempfile
+
+REPO = osp.dirname(osp.dirname(osp.abspath(__file__)))
+sys.path.insert(0, REPO)
+
+SHAPES = ("torus", "trefoil", "cloth", "shell", "skirt")
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--samples", type=int, default=100000)
+    parser.add_argument("--out", required=True, help="directory for the results")
+    parser.add_argument("--keep-model", action="append", default=[], metavar="SHAPE")
+    parser.add_argument("--config", default=None)
+    parser.add_argument("--no-provenance", action="store_true")
+    parser.add_argument("--device", default="cuda")
+    args = parser.parse_args(argv)
+
+    from diffudf_tpu_torch.cli import preprocess, quantitative
+
+    work = tempfile.mkdtemp(prefix="demo_sweep_torch_")
+    dataset = osp.join(work, "dataset")
+    for shape in SHAPES:
+        shape_dir = osp.join(dataset, shape)
+        preprocess.preprocess_mesh(shape_dir, osp.join(REPO, "data", "demo", f"{shape}.obj"),
+                                   args.samples)
+        os.remove(osp.join(shape_dir, f"{shape}_t.obj"))  # point-cloud input
+
+    exp_dir = osp.join(work, "results")
+    extra = ["--device", args.device] + (["--config", args.config] if args.config else [])
+    quantitative.main([dataset, exp_dir] + extra
+                      + (["--no-provenance"] if args.no_provenance else []))
+
+    os.makedirs(args.out, exist_ok=True)
+    for name in ("results.csv", "results_provenance.json"):
+        if osp.exists(osp.join(exp_dir, name)):
+            shutil.copy(osp.join(exp_dir, name), osp.join(args.out, name))
+    for shape in args.keep_model:
+        for suffix in (".npz", ".spec.json"):
+            src = osp.join(exp_dir, shape, "models", "model_best" + suffix)
+            if osp.exists(src):
+                shutil.copy(src, osp.join(args.out, f"{shape}_model_best{suffix}"))
+
+    with open(osp.join(REPO, "results", "protocol_floors_demo.json")) as fh:
+        floors = {r["shape"]: r for r in json.load(fh)}
+    with open(osp.join(REPO, "results", "results_demo_pc.csv")) as fh:
+        jax_rows = {r["mesh"]: r for r in csv.DictReader(fh)}
+    with open(osp.join(args.out, "results.csv")) as fh:
+        for r in csv.DictReader(fh):
+            name, floor, jr = r["mesh"], floors[r["mesh"]], jax_rows[r["mesh"]]
+            print(f"{name}: time {float(r['time']):.2f} s; CAP L1 {float(r['L1CD_CAP']):.6f} "
+                  f"L2 {float(r['L2CD_CAP']):.4e} NC {float(r['NC_CAP']):.5f}; MU L1 "
+                  f"{float(r['L1CD_MU']):.6f} L2 {float(r['L2CD_MU']):.4e} NC "
+                  f"{float(r['NC_MU']):.5f}; floor L1 {floor['floor_L1CD']} NC "
+                  f"{floor['floor_NC']}; JAX package CAP L1 {float(jr['L1CD_CAP']):.6f} "
+                  f"MU L1 {float(jr['L1CD_MU']):.6f}")
+    shutil.rmtree(work, ignore_errors=True)
+
+
+if __name__ == "__main__":
+    main()

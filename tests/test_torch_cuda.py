@@ -1,5 +1,6 @@
-"""The port's CUDA kernels (K1, K2, K3a, K3b, K4) against their plain torch
-versions, on a GPU, and the plain path for nets the kernels do not take.
+"""The port's CUDA kernels (K1, K2, K3a, K3b, K4, K5) against their plain
+torch versions, on a GPU, and the plain path for nets the kernels do not
+take.
 
 Marked ``cuda``; each test skips without a CUDA device.  This file imports
 neither jax nor the JAX package, so it also runs on a machine without them:
@@ -12,6 +13,7 @@ import pytest
 import torch
 
 from diffudf_tpu_torch.fields.siren import SirenSpec, init_siren, params_from_jax
+from diffudf_tpu_torch.ops import min_distance as tmd
 from diffudf_tpu_torch.ops import value as tval
 from diffudf_tpu_torch.ops import vg as tg
 from diffudf_tpu_torch.ops import vgh as tv
@@ -176,3 +178,69 @@ def test_wide_net_takes_the_plain_path():
     f, g, _ = value_grad_hessian_packed(params, spec, x)
     assert torch.equal(ev.f, f) and torch.equal(ev.grad, g)
     assert bool(torch.isfinite(ev.hess).all())
+
+
+def _torus_cloud(m, rng, big=0.55, small=0.22):
+    """m points on a torus about the x axis, so the x=0 plane cuts it."""
+    u, v = rng.uniform(0, 2 * np.pi, (2, m))
+    ring = big + small * np.cos(v)
+    return np.stack([small * np.sin(v), ring * np.cos(u), ring * np.sin(u)], 1)
+
+
+def _plane(width):
+    r = np.linspace(1.0, -1.0, width)
+    zz, yy = np.meshgrid(r, r, indexing="xy")
+    return np.stack([np.zeros_like(zz), yy, zz], -1).reshape(-1, 3)
+
+
+# K5 against min_distance_reference, element by element, at the Pallas
+# distance test's 1e-4 (tests/test_pallas.py::TestPallasDistance), and
+# against the plain version in float64 at the same 1e-4.
+K5_TOL = 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["gauss_300x3000", "one_query", "ragged_513x2049",
+                                  "small_cloud_4097x1000", "torus_plane_65536x100000"])
+def test_min_distance_kernel_matches_plain_version(case):
+    """K5 against its plain version and the float64 witness: Q = 1, Q not a
+    multiple of 512, M below and not a multiple of 2048, and near-surface
+    plane queries against a torus cloud."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: K5 has no CPU mode")
+    rng = np.random.default_rng(0)
+    if case == "torus_plane_65536x100000":
+        q, cloud = _plane(256), _torus_cloud(100000, rng)
+    else:
+        n, m = {"gauss_300x3000": (300, 3000), "one_query": (1, 3000),
+                "ragged_513x2049": (513, 2049), "small_cloud_4097x1000": (4097, 1000)}[case]
+        cloud, q = rng.normal(size=(m, 3)), rng.normal(size=(n, 3))
+    q = torch.as_tensor(q, dtype=torch.float32, device="cuda")
+    cloud = torch.as_tensor(cloud, dtype=torch.float32, device="cuda")
+    before = (tmd.launches, tmd.queries)
+    got = tmd.min_distance(q, cloud)
+    torch.cuda.synchronize()
+    assert (tmd.launches, tmd.queries) == (before[0] + 1, before[1] + len(q))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    want = tmd.min_distance_reference(q, cloud)
+    exact = tmd.min_distance_reference(q.double(), cloud.double())
+    assert got.shape == (len(q),) and bool(torch.isfinite(got).all())
+    assert float((got - want).abs().max()) <= K5_TOL
+    assert float((got.double() - exact).abs().max()) <= K5_TOL
+
+
+@pytest.mark.cuda
+def test_point_cloud_distance_launches_k5_once():
+    """On the card the figure's oracle is one K5 launch, bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from diffudf_tpu_torch.data.mesh_distance import point_cloud_distance
+
+    rng = np.random.default_rng(1)
+    q = torch.as_tensor(_plane(64), dtype=torch.float32, device="cuda")
+    cloud = torch.as_tensor(_torus_cloud(5000, rng), dtype=torch.float32, device="cuda")
+    before = tmd.launches
+    d = point_cloud_distance(q, cloud)
+    torch.cuda.synchronize()
+    assert tmd.launches == before + 1
+    assert torch.equal(d, tmd.min_distance(q, cloud))

@@ -130,8 +130,10 @@ def test_quality_presets_match_jax():
 
 
 def test_port_imports_neither_jax_nor_the_jax_package(tmp_path):
-    """Every module of the port imports, and a small render runs, without
-    jax or the JAX package; the render also without matplotlib and PIL."""
+    """Every module of the port imports, and a small render, slice figures
+    (``generate_df`` on a point cloud and on a mesh) and a one-shape
+    ``quantitative`` sweep run, without jax or the JAX package, and without
+    matplotlib and PIL."""
     g = np.load(os.path.join(REPO, "tests", "golden", "st_image_golden.npz"))
     spec = SirenSpec(hidden=(64, 64, 64), w0=30.0)
     model = str(tmp_path / "model.npz")
@@ -145,30 +147,51 @@ def test_port_imports_neither_jax_nor_the_jax_package(tmp_path):
                              "light_position": [1.0, 2.0, 4.0], "max_iterations": 60,
                              "plot_curvatures": "mean", "output_path": str(tmp_path / "st.png")},
     }))
+    (tmp_path / "sweep.json").write_text(json.dumps({
+        "num_epochs": 2, "s1_epochs": 1, "warmup_epochs": 0, "batch_size": 300,
+        "resolution": 16, "network": {"hidden_layer_nodes": [32, 32, 32], "w0": 30}}))
     code = (
-        "import pkgutil, importlib, sys, diffudf_tpu_torch\n"
+        "import os, pkgutil, importlib, sys, diffudf_tpu_torch\n"
         "for m in pkgutil.walk_packages(diffudf_tpu_torch.__path__, 'diffudf_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
-        "from diffudf_tpu_torch.cli import generate_st\n"
+        "from diffudf_tpu_torch.cli import generate_df, generate_st, preprocess, quantitative\n"
+        "from diffudf_tpu_torch.cli import train\n"
+        "tmp = sys.argv[2]\n"
         "generate_st.main([sys.argv[1], '--device', 'cpu'])\n"
+        "preprocess.preprocess_mesh(tmp + '/data/torus', 'data/demo/torus.obj', 2000)\n"
+        "os.replace(tmp + '/data/torus/torus_t.obj', tmp + '/torus_t.obj')\n"
+        "for geo in ('/data/torus/torus_pc.ply', '/torus_t.obj'):\n"
+        "    generate_df.main([tmp + geo, sys.argv[3], tmp + '/df', '-w', '16', '--hidden',\n"
+        "                      '64', '64', '64', '-a', '10', '--device', 'cpu'])\n"
+        "train.SLICE_WIDTH = 16\n"
+        "quantitative.main([tmp + '/data', tmp + '/sweep', '--config', tmp + '/sweep.json',\n"
+        "                   '--no-provenance', '--device', 'cpu'])\n"
         "bad = [k for k in sys.modules if k.split('.')[0] in\n"
         "       ('jax', 'diffudf_tpu', 'matplotlib', 'PIL')]\n"
         "assert not bad, bad\n"
         "print(' '.join(k for k in sys.modules if k.startswith('diffudf_tpu_torch')))\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
-    out = subprocess.run([sys.executable, "-c", code, str(cfg)], cwd=REPO, env=env,
-                         capture_output=True, text=True, timeout=120)
+    out = subprocess.run([sys.executable, "-c", code, str(cfg), str(tmp_path), model], cwd=REPO,
+                         env=env, capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    loaded = set(out.stdout.splitlines()[-1].split())  # after the render's Stats line
+    loaded = set(out.stdout.splitlines()[-1].split())  # after the CLIs' Stats lines
     assert len(loaded) > 20
     assert os.path.exists(tmp_path / "st.png")
-    # the training and render slices' modules are among those walked and imported
+    for name in ("distance_fields.png", "pred_grad.png"):
+        assert os.path.exists(tmp_path / "df" / name)
+        assert os.path.exists(tmp_path / "sweep" / "torus" / "reconstructions" / name)
+    with open(tmp_path / "sweep" / "results.csv") as fh:
+        assert len(fh.read().splitlines()) == 2
+    # the training, render and evaluation slices' modules are among those
+    # walked and imported
     for name in ("cli.train", "cli.preprocess", "config", "data.mesh_distance",
                  "data.normalize", "data.oracle_cache", "data.sampling", "ops.kernel_io",
                  "ops.vg", "train.losses", "train.loop", "train.schedule", "utils.metrics",
                  "autodiff.curvature", "cli.generate_st", "ops.value", "render.camera",
-                 "render.png", "render.shading", "render.tracer"):
+                 "render.png", "render.shading", "render.tracer", "cli.generate_df",
+                 "cli.quantitative", "eval.chamfer", "grid.slices", "ops.min_distance",
+                 "utils.drift"):
         assert "diffudf_tpu_torch." + name in loaded, name
 
 

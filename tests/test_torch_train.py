@@ -219,9 +219,10 @@ def test_config_round_trips_like_jax():
 def test_cli_trains_across_the_stage_boundary(tmp_path, monkeypatch):
     """Five CPU epochs through cli.train (s1 for three, s2 for two) on a
     preprocessed torus: finite losses, losses.csv in the JAX package's
-    format, checkpoints and both meshes; then a resume continues from the
-    saved state."""
+    format, checkpoints, the slice figure (at width 32 here: 512 in the
+    CLI) and both meshes; then a resume continues from the saved state."""
     monkeypatch.chdir(tmp_path)
+    monkeypatch.setattr(tcli, "SLICE_WIDTH", 32)
     tpre.preprocess_mesh("demo", os.path.join(REPO, "data", "demo", "torus.obj"), 3000)
     cfg = {
         "dataset": "demo/torus", "experiment_name": "t", "checkpoint_path": "out",
@@ -245,6 +246,9 @@ def test_cli_trains_across_the_stage_boundary(tmp_path, monkeypatch):
     assert rows[1][4] == "" and rows[4][0] == ""  # s1 rows lack std, s2 rows lack grad
     for name in ("model_best", "model_current", "model_final"):
         assert os.path.exists(os.path.join(out, "models", name + ".npz"))
+    assert set(stats["figure"]) == {"predict_s", "gt_s", "render_s"}
+    for name in ("distance_fields.png", "pred_grad.png"):
+        assert os.path.exists(os.path.join(out, "reconstructions", name))
 
     cfg["num_epochs"] = 6
     with open("cfg.json", "w") as fh:
