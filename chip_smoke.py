@@ -52,7 +52,10 @@ Phases, in order, each printing its seconds:
                 float64, on the trained net and a batch of its sampler at
                 the slice's shapes (9,990 surface rows for K2, 19,980
                 off-surface rows for K3a and K3b, the loss's own
-                cotangents); then their times and bounds;
+                cotangents); then their times and bounds (for K2 and K3b,
+                which multiply on the tensor cores in 3xTF32, the tensor
+                bound beside the FP32 FMA one, and the device-memory bytes
+                their design moves);
   9. render   — ``diffudf_tpu_torch.cli.generate_st.main`` in process on
                 configs/st_cfg.json's rendering config (720x720, 3 passes,
                 the mixed bf16 march) with the trained torus; gates: K4
@@ -89,6 +92,7 @@ line.  Files go to a temporary directory and the build directory only.
 import concurrent.futures
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -114,6 +118,7 @@ MAX_ACTIVE_BLOCK_SHARE = 0.5
 MAX_CHAMFER_L1 = 0.015
 # Peaks of one H100 SXM at a 700 W power limit (NVIDIA data sheet).
 PEAK_FP32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12  # dense TF32 tensor rate; K2 and K3b run 3 TF32 products a product
 PEAK_BYTES_PER_S = 3.35e12
 
 RADIUS, ALPHA, N_GRID = 0.7, 10.0, 256
@@ -191,17 +196,20 @@ def vgh_bytes(n_points, hidden):
     return n_points * 4 * (3 + 16) + weights
 
 
-def siren_kernel_bound(n_points, hidden, rows, products, row_bytes, weight_copies):
+def siren_kernel_bound(n_points, hidden, rows, products, row_bytes, weight_copies,
+                       rate=PEAK_FP32_FLOPS, passes=1):
     """(bound ms, "operations" or "bytes") of a SIREN kernel: ``rows`` carry
     rows a point through ``products`` (h, h) products per hidden layer plus
     the first layer and the head, against ``row_bytes`` of input and output
     a point and ``weight_copies`` times the weights (read, and for a VJP
-    the gradient written)."""
+    the gradient written).  The operations run ``passes`` times at ``rate``:
+    FP32 FMA by default, or 3 TF32 passes at the tensor rate for the 3xTF32
+    products of K2 and K3b."""
     h, n_mm = hidden[0], len(hidden) - 1
     flops = n_points * (2 * 3 * h + n_mm * products * rows * 2 * h * h + rows * 2 * h)
     weights = 4 * (4 * h + n_mm * (h * h + h) + h + 1)
     nbytes = n_points * row_bytes + weight_copies * weights
-    flop_ms, byte_ms = 1e3 * flops / PEAK_FP32_FLOPS, 1e3 * nbytes / PEAK_BYTES_PER_S
+    flop_ms, byte_ms = 1e3 * passes * flops / rate, 1e3 * nbytes / PEAK_BYTES_PER_S
     return max(flop_ms, byte_ms), ("operations" if flop_ms >= byte_ms else "bytes")
 
 
@@ -268,7 +276,11 @@ def build_phase():
         if "nvcc" in name:
             with open(lib[:-3] + ".log") as fh:
                 for line in fh:
-                    if "registers" in line or "spill" in line:
+                    entry = re.search(r"entry function '.*?\d([a-z_]+_kernel)(ILi(\d+)ELi(\d+)E)?", line)
+                    if entry:
+                        args = f"<{entry.group(3)}, {entry.group(4)}>" if entry.group(2) else ""
+                        print(f"[build]   ptxas: {entry.group(1)}{args}")
+                    elif "registers" in line or "spill" in line:
                         print(f"[build]   ptxas: {line.strip()}")
 
 
@@ -639,6 +651,7 @@ def train_kernel_phase(params, cfg_path):
     from diffudf_tpu_torch.cli import train
     from diffudf_tpu_torch.config import TrainConfig
     from diffudf_tpu_torch.fields.siren import flatten_params
+    from diffudf_tpu_torch.ops import kernel_io as kio
     from diffudf_tpu_torch.ops import vg, vgh
     from diffudf_tpu_torch.train.losses import loss_s1
 
@@ -700,7 +713,10 @@ def train_kernel_phase(params, cfg_path):
     if failed:
         raise AssertionError("; ".join(failed))
 
-    # times at the slice's shapes, and bounds (FP32 FMA or bytes)
+    # times at the slice's shapes, and bounds (FP32 FMA or bytes; K2 and K3b
+    # run their products on the tensor cores, so their bound is the 3xTF32
+    # one, with the FP32 FMA bound beside it)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     runs = {
         "K1": (lambda: vgh.vgh(params, spec, surf), lambda: vgh.vgh_reference(params, spec, surf),
                (len(surf), 10, 1, 4 * (3 + 16), 1)),
@@ -716,7 +732,21 @@ def train_kernel_phase(params, cfg_path):
     for name, (kernel, plain, shape) in runs.items():
         ms, plain_ms = cuda_ms(kernel, 20), cuda_ms(plain, 5)
         bound, by = siren_kernel_bound(shape[0], HIDDEN, *shape[1:])
-        out.setdefault(name, {}).update(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by)
+        row = out.setdefault(name, {})
+        row.update(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by)
+        if name in ("K2", "K3b"):
+            tensor, tby = siren_kernel_bound(shape[0], HIDDEN, *shape[1:], rate=PEAK_TF32_FLOPS,
+                                             passes=3)
+            tile = vgh._bwd_lib().vgh_bwd_tile() if name == "K2" else vg._lib().vg_bwd_tile()
+            plan = kio.backward_plan(spec, shape[0], shape[1], tile, sms)
+            row.update(bound_ms=tensor, bound_by=tby, tensor_bound_ms=tensor, fp32_bound_ms=bound,
+                       bytes_moved=plan.bytes_moved, bound_share=tensor / ms)
+            print(f"[train-kernels] {name} at {shape[0]} rows: {ms:.3f} ms (median of 20), plain "
+                  f"{plain_ms:.3f} ms; tensor bound (3xTF32) {tensor:.3f} ms ({tby}), "
+                  f"{tensor / ms:.1%} of it; FP32 FMA bound {bound:.3f} ms; the design moves "
+                  f"{plan.bytes_moved / 1e9:.3f} GB ({1e3 * plan.bytes_moved / PEAK_BYTES_PER_S:.3f}"
+                  f" ms at {PEAK_BYTES_PER_S / 1e12} TB/s)")
+            continue
         print(f"[train-kernels] {name} at {shape[0]} rows: {ms:.3f} ms (median of 20), plain "
               f"{plain_ms:.3f} ms, bound {bound:.3f} ms ({by}), {bound / ms:.1%} of the bound")
     return out
@@ -1050,9 +1080,10 @@ def main():
                                              "bound_ms", "bound_by", "queries", "cloud")},
                        cdist_amin_chunked_ms=dk["cdist_ms"])
         else:
+            # phase 8's numbers; for K2 and K3b bound_ms is the 3xTF32
+            # tensor bound, with the FP32 FMA bound and the design's bytes
             row["launches"] = run["launches"][key]
-            row.update({k: tk[key][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                                                "bound_by")})
+            row.update(tk[key])
         row["library_ms"] = None
         rows.append(row)
     print(f"[total] {time.perf_counter() - t_start:.2f} s")

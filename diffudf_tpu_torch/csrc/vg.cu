@@ -12,18 +12,26 @@
 // takes T = 16 points with one thread per hidden column, keeps its column
 // of the 64 carry rows in registers and stages the carry in 64 KB of
 // shared memory for each product; weights stream from L2.  K3b is
-// siren_bwd_kernel<4, 16> of siren_taylor.cuh (persistent grid, per-CTA
-// partial sums in a workspace, fixed-order reduction; see there).
+// dudf::bwd::launch<4, 16> of siren_bwd.cuh: tiles of 16 points (64 carry
+// rows) through the forward recompute and the cotangent chain on the
+// tensor cores in 3xTF32 (float32 accuracy), each layer's carry and m-bar
+// written once, then W-bar = C^T M-bar as a split-K 3xTF32 product whose
+// per-CTA partials are added in a fixed order (see there).
 //
 // Bound.  At 8x256 K3a does about 3.67 MFLOP a point (7 hidden layers x 4
-// rows x 2*256^2, plus the first layer and the head), K3b about 11.0 (the
-// forward recompute, then W-bar and the carry's cotangent: two more
-// products a layer), against 44 and 44 bytes of input and output a point:
-// the FP32 FMA rate bounds both, M * flop / 67e12 s on an H100 SXM.
+// rows x 2*256^2, plus the first layer and the head) against 44 bytes of
+// input and output a point: the FP32 FMA rate bounds it, M * flop / 67e12 s
+// on an H100 SXM.  K3b does about 11.0 MFLOP a point (the forward
+// recompute, then W-bar and the carry's cotangent) against 44 bytes, on the
+// tensor cores as three TF32 products each: 3 * M * flop / 495e12 s (1.334
+// ms at 19,980 points; FP32 FMA would be 3.284 ms).  It moves about 3.6 GB
+// a launch there (1.1 ms at 3.35 TB/s): carries, products and m-bars, 0.57
+// GB each, written once and read once.
 //
 // Built by ops/vg.py with nvcc -gencode arch=compute_90a,code=sm_90a -O3
 // into a shared library with a plain C interface, loaded with ctypes.
 
+#include "siren_bwd.cuh"
 #include "siren_taylor.cuh"
 
 namespace {
@@ -89,7 +97,7 @@ vg_fwd_kernel(const float* __restrict__ x, int n,
 
 extern "C" {
 
-// Points per CTA of K3b (its workspace holds grid * n_mm * 4 * tile * h floats).
+// Points per tile of K3b.
 int vg_bwd_tile() { return kT; }
 
 // K3a on `stream`; -> cudaGetLastError() (0 = ok).  x (n, 3); w1 (3, h);
@@ -110,18 +118,17 @@ int vg_launch(const float* x, int n, const float* w1, const float* b1,
   return static_cast<int>(cudaGetLastError());
 }
 
-// K3b on `stream`, then the reduction of its per-CTA partial sums;
-// -> cudaGetLastError().  cot (n, 8) = (f-bar | g-bar | 0); wht = wh
-// transposed per layer; grid <= ceil(n / vg_bwd_tile()) CTAs; ws_carry and
-// ws_m hold grid * n_mm * 64 * h floats each, partial grid * P and out P,
-// P = 4h + n_mm (h + h^2) + 1 + h, the flat gradient.
+// K3b on `stream`: the gradient of sum(cot[:, :4] * (f | g)), flat, into
+// out; -> cudaGetLastError().  cot (n, 8) = (f-bar | g-bar | 0); the other
+// arguments as vgh_bwd_launch's (csrc/vgh_bwd.cu).
 int vg_bwd_launch(const float* x, const float* cot, int n, const float* w1, const float* b1,
-                  const float* wh, const float* wht, const float* bh, int n_mm,
-                  const float* wl, float w0, float ww, int h, int grid,
-                  float* ws_carry, float* ws_m, float* partial, float* out, void* stream) {
-  return dudf::launch_bwd<kR, kT>(x, cot, 8, n, w1, b1, wh, wht, bh, n_mm, wl, w0, ww, h,
-                                  grid, ws_carry, ws_m, partial, out,
-                                  static_cast<cudaStream_t>(stream));
+                  const float* wh, const float* bh, int n_mm, const float* wl, float w0,
+                  float ww, int h, int grid, int n_split, long long split_rows, float* frag,
+                  float* ws_m, float* cbuf, float* mbar, float* small, float* wpart,
+                  float* out, void* stream) {
+  return dudf::bwd::launch<kR, kT>(x, cot, 8, n, w1, b1, wh, bh, n_mm, wl, w0, ww, h, grid,
+                                   n_split, split_rows, frag, ws_m, cbuf, mbar, small, wpart,
+                                   out, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

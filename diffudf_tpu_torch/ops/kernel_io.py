@@ -1,7 +1,10 @@
 """What the SIREN kernel wrappers (:mod:`.vgh`, :mod:`.vg`) share: the
 ``nvcc`` command, the checks on what the kernels compute, the operands in
 the layout the kernels read, and the launch of the backward kernels K2 and
-K3b (``csrc/siren_taylor.cuh``) with their workspaces.
+K3b (``csrc/siren_bwd.cuh``) with the plan of their grids, workspaces and
+device-memory bytes (:class:`BwdPlan`).  Also the TF32 split the backward
+kernels multiply with (:func:`tf32_split`, :func:`matmul_3xtf32`), in
+torch, so that its accuracy can be rehearsed on the CPU.
 
 Nothing here builds or launches at import time.
 """
@@ -9,8 +12,10 @@ Nothing here builds or launches at import time.
 from __future__ import annotations
 
 import ctypes
+import math
 import os
 import shutil
+from dataclasses import dataclass
 
 import torch
 
@@ -29,11 +34,15 @@ _P = ctypes.c_void_p
 # (x, n, w1, b1, wh, bh, n_mm, wl, bl, w0, ww, h, out, stream)
 FWD_ARGTYPES = [_P, ctypes.c_int, _P, _P, _P, _P, ctypes.c_int, _P, _P,
                 ctypes.c_float, ctypes.c_float, ctypes.c_int, _P, _P]
-# (x, cot, n, w1, b1, wh, wht, bh, n_mm, wl, w0, ww, h, grid,
-#  ws_carry, ws_m, partial, out, stream)
-BWD_ARGTYPES = [_P, _P, ctypes.c_int, _P, _P, _P, _P, _P, ctypes.c_int, _P,
-                ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                _P, _P, _P, _P, _P]
+# (x, cot, n, w1, b1, wh, bh, n_mm, wl, w0, ww, h, grid, n_split,
+#  split_rows, frag, ws_m, cbuf, mbar, small, wpart, out, stream)
+BWD_ARGTYPES = [_P, _P, ctypes.c_int, _P, _P, _P, _P, ctypes.c_int, _P,
+                ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                ctypes.c_longlong, _P, _P, _P, _P, _P, _P, _P, _P]
+
+# csrc/siren_bwd.cuh: wbar_kernel's output block and its rows a pipeline stage
+WBAR_BLOCK = 128
+WBAR_CHUNK = 32
 
 
 def nvcc_command() -> list:
@@ -130,36 +139,152 @@ def launch_forward(fn, params, spec, x, out):
         raise RuntimeError(f"kernel launch failed with CUDA error {rc}")
 
 
+@dataclass(frozen=True)
+class BwdPlan:
+    """Grid, workspaces and device-memory bytes of one launch of the backward
+    kernel (K2: ``rows`` 10, ``tile`` 8; K3b: 4 and 16) for ``n`` points of
+    a net of width ``h`` with ``n_mm`` hidden products, on a card with
+    ``sms`` SMs.  Sizes are in floats; see ``csrc/siren_bwd.cuh``."""
+
+    rows: int
+    tile: int
+    h: int
+    n_mm: int
+    n: int
+    sms: int
+
+    @property
+    def n_tiles(self) -> int:
+        return -(-self.n // self.tile)
+
+    @property
+    def grid(self) -> int:
+        """CTAs of tile_kernel: persistent, at most one per SM."""
+        return min(self.sms, self.n_tiles)
+
+    @property
+    def k_rows(self) -> int:
+        """Rows of C and M-bar a layer: every tile's rows * tile carry rows."""
+        return self.n_tiles * self.rows * self.tile
+
+    @property
+    def blocks(self) -> int:
+        """wbar_kernel's output blocks a layer."""
+        nb = -(-self.h // WBAR_BLOCK)
+        return nb * nb
+
+    @property
+    def splits(self) -> int:
+        """Row runs of wbar_kernel a layer: at least four waves of CTAs on
+        the card, as even as the runs allow (the fewest CTAs in the last
+        wave's gap), never more runs than 32-row chunks."""
+        units = self.n_mm * self.blocks
+        if units == 0:
+            return 0
+        chunks = -(-self.k_rows // WBAR_CHUNK)
+        lo = min(chunks, -(-4 * self.sms // units))
+        best = max(range(lo, min(chunks, 2 * lo) + 1),
+                   key=lambda s: (units * s / (-(-units * s // self.sms) * self.sms), -s))
+        return -(-chunks // -(-chunks // best))  # no empty run
+
+    @property
+    def split_rows(self) -> int:
+        """Rows of K a run: a multiple of 32."""
+        if not self.splits:
+            return 0
+        chunks = -(-self.k_rows // WBAR_CHUNK)
+        return WBAR_CHUNK * -(-chunks // self.splits)
+
+    @property
+    def flat(self) -> int:
+        """Floats of the flat gradient."""
+        return 4 * self.h + self.n_mm * (self.h + self.h * self.h) + 1 + self.h
+
+    @property
+    def sizes(self) -> dict:
+        """Floats of each buffer the launch needs."""
+        h, rt = self.h, self.rows * self.tile
+        k32 = -(-self.k_rows // WBAR_CHUNK) * WBAR_CHUNK  # stored in blocks of 32 rows
+        return {
+            "frag": 2 * self.n_mm * h * h,          # W and W^T in fragment order
+            "ws_m": self.grid * self.n_mm * rt * h,  # m of one tile, per CTA
+            "cbuf": self.n_mm * h * k32,            # every product's input carry
+            "mbar": self.n_mm * h * k32,            # every product's m-bar
+            "small": self.grid * (5 * h + 1),       # b1, W1, b_L, W_L per CTA
+            "wpart": self.n_mm * self.splits * (h * h + h),  # W-bar, b-bar per run
+        }
+
+    @property
+    def bytes_moved(self) -> int:
+        """Device-memory bytes a launch moves by the design: x and the R
+        used cotangent columns read once; the weights read once; the
+        fragments, the partials and the K rows of C and M-bar written once
+        and read once (the tiles re-read the fragments from L2); m written
+        and read once a tile, as many floats as C; the flat gradient
+        written once."""
+        if self.n_tiles == 0:
+            return 4 * self.flat
+        weights = self.flat - 1  # every W and b but b_L
+        z = self.sizes
+        rows = self.n_mm * self.h * self.k_rows  # of C, of M-bar and of m
+        once = z["frag"] + z["small"] + z["wpart"] + 3 * rows
+        return 4 * (self.n * (3 + self.rows) + weights + self.flat + 2 * once)
+
+
+def backward_plan(spec: SirenSpec, n: int, rows: int, tile: int, sms: int) -> BwdPlan:
+    return BwdPlan(rows=rows, tile=tile, h=spec.hidden[0], n_mm=len(spec.hidden) - 1, n=n,
+                   sms=sms)
+
+
 def launch_backward(fn, tile: int, rows: int, params, spec, x, cot):
     """Call a backward launcher (K2 or K3b) and return the gradient as a
     list of ``{'w', 'b'}`` views of one flat tensor (ravel_pytree layout).
 
-    The grid is persistent: one CTA per SM at most, each with its own
-    workspace of ``2 * n_hidden * rows * tile * h`` floats and its own
-    partial gradient, which the launcher then adds up in a fixed order."""
+    The workspaces follow :func:`backward_plan`; the launcher adds every
+    partial in a fixed order."""
     dev = x.device
-    h, n = spec.hidden[0], x.shape[0]
     out = torch.empty(flat_size(spec), device=dev, dtype=torch.float32)
-    n_tiles = -(-n // tile)
-    if n_tiles == 0:
+    plan = backward_plan(spec, x.shape[0], rows, tile,
+                         torch.cuda.get_device_properties(dev).multi_processor_count)
+    if plan.n_tiles == 0:
         return unflatten_params(out.zero_(), spec)
     w1, b1, wh, bh, wl, _ = weights(params, dev)
-    n_mm = len(params) - 2
-    wht = wh.transpose(1, 2).contiguous() if n_mm else wh
     w0, ww = freqs(spec)
-    grid = min(torch.cuda.get_device_properties(dev).multi_processor_count, n_tiles)
-    ws_carry = torch.empty(grid * n_mm * rows * tile * h, device=dev, dtype=torch.float32)
-    ws_m = torch.empty_like(ws_carry)
-    partial = torch.empty(grid * out.numel(), device=dev, dtype=torch.float32)
+    buf = {k: torch.empty(v, device=dev, dtype=torch.float32) for k, v in plan.sizes.items()}
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(x.data_ptr(), cot.data_ptr(), n, w1.data_ptr(), b1.data_ptr(),
-                wh.data_ptr(), wht.data_ptr(), bh.data_ptr(), n_mm, wl.data_ptr(),
-                float(w0), float(ww), h, grid, ws_carry.data_ptr(), ws_m.data_ptr(),
-                partial.data_ptr(), out.data_ptr(), stream)
+        rc = fn(x.data_ptr(), cot.data_ptr(), plan.n, w1.data_ptr(), b1.data_ptr(),
+                wh.data_ptr(), bh.data_ptr(), plan.n_mm, wl.data_ptr(), float(w0), float(ww),
+                plan.h, plan.grid, plan.splits, plan.split_rows,
+                *(buf[k].data_ptr() for k in ("frag", "ws_m", "cbuf", "mbar", "small", "wpart")),
+                out.data_ptr(), stream)
     if rc:
         raise RuntimeError(f"backward kernel launch failed with CUDA error {rc}")
     return unflatten_params(out, spec)
+
+
+def tf32_round(a: torch.Tensor) -> torch.Tensor:
+    """float32 rounded to TF32 (10 explicit mantissa bits) to nearest, ties
+    away from zero: ``cvt.rna.tf32.f32``.  The low 13 bits come out zero."""
+    bits = a.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def tf32_split(a: torch.Tensor):
+    """(hi, lo) = (rna(a), rna(a - hi)): the operand split of the backward
+    kernels.  hi + lo is a to within 2^-22 |a|, exactly when a - hi fits in
+    11 significant bits."""
+    hi = tf32_round(a)
+    return hi, tf32_round(a - hi)
+
+
+def matmul_3xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b as the kernels form it: lo*hi + hi*lo + hi*hi, each product of
+    TF32 values exact in float32, summed in float32 (one float32 matmul over
+    the three stacked terms)."""
+    ah, al = tf32_split(a)
+    bh, bl = tf32_split(b)
+    return torch.cat([al, ah, ah], dim=1) @ torch.cat([bh, bl, bh], dim=0)
 
 
 def param_leaves(params):

@@ -2,7 +2,8 @@
 VJP K3b, and the autograd op that pairs them.
 
 Both kernels are in ``csrc/vg.cu``: K3a replaces ``diffudf_tpu/ops/
-pallas_vg.py::_vg_fwd_kernel`` and K3b ``_vg_bwd_kernel``.  :func:`vg` and
+pallas_vg.py::_vg_fwd_kernel`` and K3b (on ``csrc/siren_bwd.cuh``, the
+backward design of K2) ``_vg_bwd_kernel``.  :func:`vg` and
 :func:`vg_bwd` are their wrappers: on a CUDA tensor they launch the kernel
 (and raise on any input the kernel does not take); on a CPU tensor they run
 the plain torch versions :func:`vg_reference` and :func:`vg_bwd_reference`,
@@ -28,7 +29,7 @@ from ..native.build import build_shared
 from . import kernel_io as kio
 from .sincos import fast_sincos
 
-_SOURCES = kio.sources("vg.cu", "siren_taylor.cuh", "sincos.cuh")
+_SOURCES = kio.sources("vg.cu", "siren_taylor.cuh", "siren_bwd.cuh", "sincos.cuh")
 
 # kernel launches since the counts were last set to 0: K3a, K3b
 launches = 0

@@ -2,8 +2,9 @@
 hand-derived VJP K2, and the autograd op that pairs them.
 
 K1 (``csrc/vgh.cu``) replaces ``diffudf_tpu/ops/pallas_vgh.py::_vgh_kernel``;
-K2 (``csrc/vgh_bwd.cu`` on ``csrc/siren_taylor.cuh``) replaces
-``diffudf_tpu/ops/pallas_vgh_vjp.py::_vgh_bwd_kernel``.  :func:`vgh` and
+K2 (``csrc/vgh_bwd.cu`` on ``csrc/siren_bwd.cuh``: 3xTF32 tensor-core
+products, W-bar as a split-K product of each layer's carries and m-bars)
+replaces ``diffudf_tpu/ops/pallas_vgh_vjp.py::_vgh_bwd_kernel``.  :func:`vgh` and
 :func:`vgh_bwd` are their wrappers: on a CUDA tensor they launch the kernel
 (and raise on any input the kernel does not take); on a CPU tensor they run
 the plain torch versions :func:`vgh_reference` and :func:`vgh_bwd_reference`,
@@ -32,7 +33,7 @@ from .kernel_io import TRI_I as _TRI_I, TRI_J as _TRI_J, check_spec  # noqa: F40
 from .sincos import fast_sincos
 
 _SOURCES = kio.sources("vgh.cu", "sincos.cuh")
-_BWD_SOURCES = kio.sources("vgh_bwd.cu", "siren_taylor.cuh", "sincos.cuh")
+_BWD_SOURCES = kio.sources("vgh_bwd.cu", "siren_bwd.cuh", "sincos.cuh")
 
 # kernel launches since the counts were last set to 0: K1, K2
 launches = 0

@@ -96,9 +96,18 @@ def test_vg_kernel_matches_plain_version(hidden, n):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("kernel", ["vgh_bwd", "vg_bwd"])
-@pytest.mark.parametrize("hidden,n", [((256,) * 8, 9990), ((64,) * 3, 1001)])
+@pytest.mark.parametrize("hidden,n", [
+    ((256,) * 8, 9990),  # the training shape, a ragged last tile of 8 and of 16
+    ((64,) * 3, 1001),
+    ((32,) * 4, 1001),   # one warp a CTA
+    ((96,) * 3, 1003),   # a W-bar block of 128 rows and columns, 96 of them used
+    ((160,) * 3, 333),   # a second W-bar block, 32 of its 128 used
+    ((64,) * 3, 5),      # fewer points than one tile
+    ((64,), 1001),       # one hidden layer: no hidden product (n_mm = 0)
+])
 def test_backward_kernel_matches_plain_version(kernel, hidden, n):
-    """K2 / K3b against their plain versions on the card, ragged N."""
+    """K2 / K3b against their plain versions on the card: every width class
+    the tiling treats apart, ragged N, N below one tile, no hidden product."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: K2 and K3b have no CPU mode")
     spec, params, x, cot = _case(hidden, n)
