@@ -22,7 +22,9 @@ Phases, in order, each printing its seconds:
                 directory, with each ptxas register report;
   3. kernel   — K1 vs ``vgh_reference`` on 65,536 points of a random-init
                 8x256 net, with the tolerances of the JAX package's Pallas
-                test (f 1e-5, g 1e-4, h6 5e-3, absolute), and its times;
+                test (f 1e-5, g 1e-4, h6 5e-3, absolute), and its times
+                beside its 3xTF32 tensor bound, its FP32 FMA bound and the
+                bytes its design moves;
   4. fixture  — fits the 8x256 SIREN to g(d) = d*tanh(10 d) of the sphere
                 |x| = 0.7 by value regression (autograd + Adam, no kernels),
                 saved as a JAX-format checkpoint in a temporary directory;
@@ -32,7 +34,9 @@ Phases, in order, each printing its seconds:
                 of each mesh against 100k points of the sphere;
   6. timing   — K1 against its plain version, element by element, and both
                 against the plain version in float64, at the shape the
-                slice gave K1; then their times;
+                slice gave K1; then their times and K1's bounds.  A failed
+                gate of this phase is reported at once and raised after
+                phase 12, so that one run still measures every path;
   7. train    — preprocesses data/demo/torus.obj (100k points) and runs
                 ``diffudf_tpu_torch.cli.train.main`` on the recipe of
                 results/results_demo_pc.csv; gates: K1, K2, K3a and K3b
@@ -47,15 +51,15 @@ Phases, in order, each printing its seconds:
                 script's own, L2 and NC of the two backends within 1e-4 of
                 each other); prints s1 and s2 steps/s beside the original
                 DiffUDF's 7.54;
-  8. training kernels — K2, K3a and K3b against their plain versions,
+  8. training kernels — K1, K2, K3a and K3b against their plain versions,
                 element by element, and against the plain versions in
                 float64, on the trained net and a batch of its sampler at
-                the slice's shapes (9,990 surface rows for K2, 19,980
-                off-surface rows for K3a and K3b, the loss's own
-                cotangents); then their times and bounds (for K2 and K3b,
-                which multiply on the tensor cores in 3xTF32, the tensor
-                bound beside the FP32 FMA one, and the device-memory bytes
-                their design moves);
+                the slice's shapes (9,990 surface rows for K1 and K2,
+                19,980 off-surface rows for K3a and K3b, the loss's own
+                cotangents for K2 and K3b); then their times and bounds:
+                all four multiply on the tensor cores in 3xTF32, so the
+                tensor bound, with the FP32 FMA one and the device-memory
+                bytes their design moves beside it;
   9. render   — ``diffudf_tpu_torch.cli.generate_st.main`` in process on
                 configs/st_cfg.json's rendering config (720x720, 3 passes,
                 the mixed bf16 march) with the trained torus; gates: K4
@@ -82,11 +86,12 @@ Phases, in order, each printing its seconds:
                 form would have had, and the median of 20 CUDA-event times
                 of K5, its plain version and chunked ``torch.cdist`` +
                 ``amin`` beside the bound; then K1 at the figure's 262,144
-                points.
+                points beside its bounds.
 
 Then a ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}`` line.
-Any failed phase raises, and the script exits non-zero without the last
-line.  Files go to a temporary directory and the build directory only.
+Any failed phase raises (phase 6's gates after phase 12), and the script
+exits non-zero without those two lines.  Files go to a temporary directory
+and the build directory only.
 """
 
 import concurrent.futures
@@ -118,7 +123,7 @@ MAX_ACTIVE_BLOCK_SHARE = 0.5
 MAX_CHAMFER_L1 = 0.015
 # Peaks of one H100 SXM at a 700 W power limit (NVIDIA data sheet).
 PEAK_FP32_FLOPS = 67e12
-PEAK_TF32_FLOPS = 495e12  # dense TF32 tensor rate; K2 and K3b run 3 TF32 products a product
+PEAK_TF32_FLOPS = 495e12  # dense TF32 tensor rate; K1-K3b run 3 TF32 products a product
 PEAK_BYTES_PER_S = 3.35e12
 
 RADIUS, ALPHA, N_GRID = 0.7, 10.0, 256
@@ -163,6 +168,8 @@ PEAK_BF16_FLOPS = 989e12  # dense bf16 tensor rate, H100 SXM at 700 W
 FIGURE_WIDTH = 512
 K5_TOL = 1e-4
 CHAMFER_RTOL = {"L1": 1e-6, "L2": 1e-4, "NC": 1e-4}
+# Gates that failed in a phase that lets the later phases run (phase 6)
+FAILED = []
 
 
 def phase(name):
@@ -182,20 +189,6 @@ def unit_sphere_points(n, rng):
     return p / np.linalg.norm(p, axis=1, keepdims=True)
 
 
-def vgh_flops(n_points, hidden):
-    """FLOPs of K1 for n_points: first layer, 10 carry rows through each
-    hidden product and the head."""
-    h, n_mm = hidden[0], len(hidden) - 1
-    return n_points * (2 * 3 * h + n_mm * 10 * 2 * h * h + 10 * 2 * h)
-
-
-def vgh_bytes(n_points, hidden):
-    """Bytes K1 must move: x in, (N, 16) out, the weights once."""
-    h, n_mm = hidden[0], len(hidden) - 1
-    weights = 4 * (4 * h + n_mm * (h * h + h) + h + 1)
-    return n_points * 4 * (3 + 16) + weights
-
-
 def siren_kernel_bound(n_points, hidden, rows, products, row_bytes, weight_copies,
                        rate=PEAK_FP32_FLOPS, passes=1):
     """(bound ms, "operations" or "bytes") of a SIREN kernel: ``rows`` carry
@@ -204,13 +197,53 @@ def siren_kernel_bound(n_points, hidden, rows, products, row_bytes, weight_copie
     a point and ``weight_copies`` times the weights (read, and for a VJP
     the gradient written).  The operations run ``passes`` times at ``rate``:
     FP32 FMA by default, or 3 TF32 passes at the tensor rate for the 3xTF32
-    products of K2 and K3b."""
+    products of K1-K3b."""
     h, n_mm = hidden[0], len(hidden) - 1
     flops = n_points * (2 * 3 * h + n_mm * products * rows * 2 * h * h + rows * 2 * h)
     weights = 4 * (4 * h + n_mm * (h * h + h) + h + 1)
     nbytes = n_points * row_bytes + weight_copies * weights
     flop_ms, byte_ms = 1e3 * passes * flops / rate, 1e3 * nbytes / PEAK_BYTES_PER_S
     return max(flop_ms, byte_ms), ("operations" if flop_ms >= byte_ms else "bytes")
+
+
+# rows of the carry, hidden (h, h) products a layer, output columns and
+# copies of the weights moved (read; K2 and K3b also write the gradient)
+SIREN_KERNELS = {"K1": (10, 1, 16, 1), "K2": (10, 3, 16, 2), "K3a": (4, 1, 8, 1),
+                 "K3b": (4, 3, 8, 2)}
+
+
+def kernel_bounds(name, n_points):
+    """A SIREN kernel's bounds at n_points of the 8x256 net: the 3xTF32
+    tensor bound (``bound_ms``, three TF32 products at the tensor rate), the
+    FP32 FMA bound beside it, and the device-memory bytes of its design
+    (``FwdPlan`` or ``BwdPlan.bytes_moved``)."""
+    from diffudf_tpu_torch.fields.siren import SirenSpec
+    from diffudf_tpu_torch.ops import kernel_io as kio
+    from diffudf_tpu_torch.ops import vg, vgh
+
+    rows, products, cols, copies = SIREN_KERNELS[name]
+    shape = (rows, products, 4 * (3 + cols), copies)
+    tensor, by = siren_kernel_bound(n_points, HIDDEN, *shape, rate=PEAK_TF32_FLOPS, passes=3)
+    fp32, _ = siren_kernel_bound(n_points, HIDDEN, *shape)
+    spec, sms = SirenSpec(hidden=HIDDEN), torch.cuda.get_device_properties(0).multi_processor_count
+    if name == "K1":
+        plan = kio.forward_plan(spec, n_points, vgh._lib().vgh_tile(), cols, sms)
+    elif name == "K3a":
+        plan = kio.forward_plan(spec, n_points, vg._lib().vg_tile(), cols, sms)
+    else:
+        tile = vgh._bwd_lib().vgh_bwd_tile() if name == "K2" else vg._lib().vg_tile()
+        plan = kio.backward_plan(spec, n_points, rows, tile, sms)
+    return {"bound_ms": tensor, "bound_by": by, "tensor_bound_ms": tensor,
+            "fp32_bound_ms": fp32, "bytes_moved": plan.bytes_moved}
+
+
+def bounds_text(ms, b):
+    """A kernel's time against its 3xTF32 tensor bound, FP32 FMA bound and
+    design bytes, as phases 3, 6, 8 and 12 print it."""
+    return (f"tensor bound (3xTF32) {b['tensor_bound_ms']:.3f} ms ({b['bound_by']}), "
+            f"{b['tensor_bound_ms'] / ms:.1%} of it; FP32 FMA bound {b['fp32_bound_ms']:.3f} ms; "
+            f"the design moves {b['bytes_moved'] / 1e9:.4f} GB "
+            f"({1e3 * b['bytes_moved'] / PEAK_BYTES_PER_S:.3f} ms at {PEAK_BYTES_PER_S / 1e12} TB/s)")
 
 
 def cuda_ms(fn, reps):
@@ -303,9 +336,8 @@ def kernel_phase():
             raise AssertionError(f"K1 disagrees with vgh_reference on {k}: {v} > {TOL[k]}")
     ms = cuda_ms(lambda: vgh.vgh(params, spec, x), 20)
     plain_ms = cuda_ms(lambda: vgh.vgh_reference(params, spec, x), 5)
-    bound = 1e3 * vgh_flops(len(x), HIDDEN) / PEAK_FP32_FLOPS
-    print(f"[kernel] K1 {ms:.3f} ms (median of 20), plain {plain_ms:.3f} ms, "
-          f"FP32 bound {bound:.3f} ms at 65536 points")
+    print(f"[kernel] K1 {ms:.3f} ms (median of 20), plain {plain_ms:.3f} ms at 65536 points; "
+          f"{bounds_text(ms, kernel_bounds('K1', len(x)))}")
 
 
 @phase("fixture")
@@ -440,7 +472,10 @@ def timing_phase(model_path, n_points):
     K1 is held to the plain version element by element, |K1 - plain| <=
     TOL + RTOL * |plain|.  The plain version in float64 is a second witness:
     on each component K1's largest and RMS distance from it may be at most
-    WITNESS times the float32 plain version's."""
+    WITNESS times the float32 plain version's.  Each output's worst distance
+    from float64 over TOL + RTOL |float64| is printed for K1 and the plain
+    version beside the gates; it is no gate.  Failed gates go to FAILED and
+    the phase goes on to the times."""
     from diffudf_tpu_torch.fields.siren import SirenSpec
     from diffudf_tpu_torch.ops import vgh
     from diffudf_tpu_torch.train.checkpoint import load_params
@@ -466,9 +501,11 @@ def timing_phase(model_path, n_points):
         err = (a - b).abs()
         limit = TOL[k] + RTOL * b.abs()
         e_k1, e_plain = (a.double() - e).abs(), (b.double() - e).abs()
+        limit64 = TOL[k] + RTOL * e.abs()
         r = {
             "max_err": err.max(), "rms_plain": b.square().mean().sqrt(),
             "max_plain": b.abs().max(), "worst_err/limit": (err / limit).max(),
+            "f64_worst_err/limit": ((e_k1 / limit64).max(), (e_plain / limit64).max()),
             "f64_max": (e_k1.max(), e_plain.max()),
             "f64_rms": (e_k1.square().mean().sqrt(), e_plain.square().mean().sqrt()),
         }
@@ -478,7 +515,9 @@ def timing_phase(model_path, n_points):
               f"{RTOL} |plain| (plain: RMS {r['rms_plain']:.3e}, max {r['max_plain']:.3e}), "
               f"worst err/limit {r['worst_err/limit']:.3f}; vs float64, K1 / plain: "
               f"max {r['f64_max'][0]:.3e} / {r['f64_max'][1]:.3e}, "
-              f"RMS {r['f64_rms'][0]:.3e} / {r['f64_rms'][1]:.3e}")
+              f"RMS {r['f64_rms'][0]:.3e} / {r['f64_rms'][1]:.3e}; worst |x - float64| / "
+              f"({TOL[k]} + {RTOL} |float64|), K1 / plain: {r['f64_worst_err/limit'][0]:.3f} / "
+              f"{r['f64_worst_err/limit'][1]:.3f}")
         if not r["worst_err/limit"] <= 1:
             failed.append(f"{k}: K1 outside {TOL[k]} + {RTOL} |plain| of the plain version")
         for n in ("f64_max", "f64_rms"):
@@ -487,16 +526,14 @@ def timing_phase(model_path, n_points):
                               f"{WITNESS} x the float32 plain version's {r[n][1]}")
     del want, exact
     if failed:
-        raise AssertionError("; ".join(failed))
+        print(f"[timing] FAILED: {'; '.join(failed)}", flush=True)
+        FAILED.extend(f"phase 6: {m}" for m in failed)
     ms = cuda_ms(lambda: vgh.vgh(params, spec, x), 20)
     plain_ms = cuda_ms(plain, 3)
-    flop_ms = 1e3 * vgh_flops(n_points, HIDDEN) / PEAK_FP32_FLOPS
-    byte_ms = 1e3 * vgh_bytes(n_points, HIDDEN) / PEAK_BYTES_PER_S
+    b = kernel_bounds("K1", n_points)
     print(f"[timing] {n_points} points: K1 {ms:.3f} ms (median of 20), plain "
-          f"{plain_ms:.3f} ms, bound {max(flop_ms, byte_ms):.3f} ms "
-          f"(FP32 {flop_ms:.3f}, bytes {byte_ms:.3f})")
-    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": max(flop_ms, byte_ms),
-            "bound_by": "operations" if flop_ms >= byte_ms else "bytes",
+          f"{plain_ms:.3f} ms; {bounds_text(ms, b)}")
+    return {"ms": ms, "plain_ms": plain_ms, **b, "bound_share": b["bound_ms"] / ms,
             "max_err": {k: r["max_err"] for k, r in report.items()}}
 
 
@@ -646,12 +683,11 @@ def witness(name, got, want, exact, failed, tag="[train-kernels]"):
 
 @phase("training kernels")
 def train_kernel_phase(params, cfg_path):
-    """K2, K3a and K3b against their plain versions on the trained net and a
-    batch of the run's sampler, with the s1 loss's own cotangents."""
+    """K1, K2, K3a and K3b against their plain versions on the trained net
+    and a batch of the run's sampler, with the s1 loss's own cotangents."""
     from diffudf_tpu_torch.cli import train
     from diffudf_tpu_torch.config import TrainConfig
     from diffudf_tpu_torch.fields.siren import flatten_params
-    from diffudf_tpu_torch.ops import kernel_io as kio
     from diffudf_tpu_torch.ops import vg, vgh
     from diffudf_tpu_torch.train.losses import loss_s1
 
@@ -675,19 +711,28 @@ def train_kernel_phase(params, cfg_path):
           f"{len(off)} off-surface rows ({len(off) % 16} in the masked last tile of 16)")
     failed, out = [], {}
 
-    # K3a: element by element, f 1e-5 and g 1e-4 absolute plus RTOL |plain|
-    got, want = vg.vg(params, spec, off), vg.vg_reference(params, spec, off)
-    exact = vg.vg_reference(p64, spec, off.double())
-    torch.cuda.synchronize()
-    worst = 0.0
-    for k, a, b, e in zip(("f", "g"), got, want, exact):
-        worst = max(worst, float(((a - b).abs() / (TOL[k] + RTOL * b.abs())).max()))
-        witness(f"K3a {k}", a, b, e, failed)
-    err = max(float((a - b).abs().max()) for a, b in zip(got, want))
-    print(f"[train-kernels] K3a: max |kernel - plain| {err:.3e}, worst err/limit {worst:.3f}")
-    if not worst <= 1:
-        failed.append("K3a outside its tolerance of the plain version")
-    out["K3a"] = {"max_abs_err": err}
+    # K1 and K3a: element by element, f 1e-5, g 1e-4 and h6 5e-3 absolute
+    # plus RTOL |plain|
+    for name, fn, plain, x, names in (
+            ("K1", vgh.vgh, vgh.vgh_reference, surf, ("f", "g", "h6")),
+            ("K3a", vg.vg, vg.vg_reference, off, ("f", "g"))):
+        got, want = fn(params, spec, x), plain(params, spec, x)
+        exact = plain(p64, spec, x.double())
+        torch.cuda.synchronize()
+        worst = 0.0
+        for k, a, b, e in zip(names, got, want, exact):
+            worst = max(worst, float(((a - b).abs() / (TOL[k] + RTOL * b.abs())).max()))
+            witness(f"{name} {k}", a, b, e, failed)
+            limit64 = TOL[k] + RTOL * e.abs()
+            print(f"[train-kernels] {name} {k}: worst |x - float64| / ({TOL[k]} + {RTOL} "
+                  f"|float64|), kernel / plain: {float(((a.double() - e).abs() / limit64).max()):.3f}"
+                  f" / {float(((b.double() - e).abs() / limit64).max()):.3f}")
+        err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+        print(f"[train-kernels] {name}: max |kernel - plain| {err:.3e}, worst err/limit "
+              f"{worst:.3f}")
+        if not worst <= 1:
+            failed.append(f"{name} outside its tolerance of the plain version")
+        out[name] = {"max_abs_err": err}
 
     # K2 and K3b: every gradient element within GTOL * max(max |plain|, 1)
     # + RTOL |plain| of the plain version
@@ -713,42 +758,25 @@ def train_kernel_phase(params, cfg_path):
     if failed:
         raise AssertionError("; ".join(failed))
 
-    # times at the slice's shapes, and bounds (FP32 FMA or bytes; K2 and K3b
-    # run their products on the tensor cores, so their bound is the 3xTF32
-    # one, with the FP32 FMA bound beside it)
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    # times at the slice's shapes, and bounds: all four run their products
+    # on the tensor cores, so their bound is the 3xTF32 one, with the FP32
+    # FMA bound and the bytes of their design beside it
     runs = {
         "K1": (lambda: vgh.vgh(params, spec, surf), lambda: vgh.vgh_reference(params, spec, surf),
-               (len(surf), 10, 1, 4 * (3 + 16), 1)),
+               len(surf)),
         "K2": (lambda: vgh.vgh_bwd(params, spec, surf, cot16),
-               lambda: vgh.vgh_bwd_reference(params, spec, surf, cot16),
-               (len(surf), 10, 3, 4 * (3 + 16), 2)),
+               lambda: vgh.vgh_bwd_reference(params, spec, surf, cot16), len(surf)),
         "K3a": (lambda: vg.vg(params, spec, off), lambda: vg.vg_reference(params, spec, off),
-                (len(off), 4, 1, 4 * (3 + 8), 1)),
+                len(off)),
         "K3b": (lambda: vg.vg_bwd(params, spec, off, cot8),
-                lambda: vg.vg_bwd_reference(params, spec, off, cot8),
-                (len(off), 4, 3, 4 * (3 + 8), 2)),
+                lambda: vg.vg_bwd_reference(params, spec, off, cot8), len(off)),
     }
-    for name, (kernel, plain, shape) in runs.items():
+    for name, (kernel, plain, n) in runs.items():
         ms, plain_ms = cuda_ms(kernel, 20), cuda_ms(plain, 5)
-        bound, by = siren_kernel_bound(shape[0], HIDDEN, *shape[1:])
-        row = out.setdefault(name, {})
-        row.update(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by)
-        if name in ("K2", "K3b"):
-            tensor, tby = siren_kernel_bound(shape[0], HIDDEN, *shape[1:], rate=PEAK_TF32_FLOPS,
-                                             passes=3)
-            tile = vgh._bwd_lib().vgh_bwd_tile() if name == "K2" else vg._lib().vg_bwd_tile()
-            plan = kio.backward_plan(spec, shape[0], shape[1], tile, sms)
-            row.update(bound_ms=tensor, bound_by=tby, tensor_bound_ms=tensor, fp32_bound_ms=bound,
-                       bytes_moved=plan.bytes_moved, bound_share=tensor / ms)
-            print(f"[train-kernels] {name} at {shape[0]} rows: {ms:.3f} ms (median of 20), plain "
-                  f"{plain_ms:.3f} ms; tensor bound (3xTF32) {tensor:.3f} ms ({tby}), "
-                  f"{tensor / ms:.1%} of it; FP32 FMA bound {bound:.3f} ms; the design moves "
-                  f"{plan.bytes_moved / 1e9:.3f} GB ({1e3 * plan.bytes_moved / PEAK_BYTES_PER_S:.3f}"
-                  f" ms at {PEAK_BYTES_PER_S / 1e12} TB/s)")
-            continue
-        print(f"[train-kernels] {name} at {shape[0]} rows: {ms:.3f} ms (median of 20), plain "
-              f"{plain_ms:.3f} ms, bound {bound:.3f} ms ({by}), {bound / ms:.1%} of the bound")
+        b = kernel_bounds(name, n)
+        out[name].update(ms=ms, plain_ms=plain_ms, **b, bound_share=b["bound_ms"] / ms)
+        print(f"[train-kernels] {name} at {n} rows: {ms:.3f} ms (median of 20), plain "
+              f"{plain_ms:.3f} ms; {bounds_text(ms, b)}")
     return out
 
 
@@ -1008,14 +1036,13 @@ def distance_kernel_phase(data_dir, params):
 
     spec = SirenSpec(hidden=HIDDEN)
     k1_ms = cuda_ms(lambda: vgh.vgh(params, spec, q), 20)
-    k1_bound, k1_by = siren_kernel_bound(nq, HIDDEN, 10, 1, 4 * (3 + 16), 1)
-    print(f"[distance-kernel] K1 at the figure's {nq} points: {k1_ms:.3f} ms (median of 20), "
-          f"bound {k1_bound:.3f} ms ({k1_by}), {k1_bound / k1_ms:.1%} of the bound")
+    k1 = kernel_bounds("K1", nq)
+    print(f"[distance-kernel] K1 at the figure's {nq} points: {k1_ms:.3f} ms (median of 20); "
+          f"{bounds_text(k1_ms, k1)}")
     return {"max_abs_err": report["K5 - plain"][0], "witness_max_err": report["K5 - float64"][0],
             "expanded_form_max_err": report["expanded form - float64"][0], "ms": ms,
             "plain_ms": plain_ms, "cdist_ms": cdist_ms, "bound_ms": bound, "bound_by": by,
-            "queries": nq, "cloud": m, "k1_figure": {"points": nq, "ms": k1_ms,
-                                                     "bound_ms": k1_bound}}
+            "queries": nq, "cloud": m, "k1_figure": {"points": nq, "ms": k1_ms, **k1}}
 
 
 KERNELS = {
@@ -1047,20 +1074,25 @@ def main():
         rk = render_kernel_phase(render["cfg"], render["model_path"])
         figs = figures_phase(tmp, run["data_dir"])
         dk = distance_kernel_phase(run["data_dir"], run["params"])
+    if FAILED:
+        raise AssertionError("; ".join(FAILED))
     rows = []
     for key, (name, source, replaces) in KERNELS.items():
         row = {"name": name, "route": "cuda", "source": source, "replaces": replaces}
         if key == "K1":
             # K1 runs on every path: its numbers are those at the extraction
-            # shape (phase 6); phase 8 prints them at the training shape
+            # shape (phase 6), bound_ms its 3xTF32 tensor bound; phase 8's
+            # are at the training shape and phase 12's at the figure's
             row.update(launches=run["launches"]["K1"],
                        launches_by_path={"generate_mc": k1_mc_launches,
                                          "train": run["launches"]["K1"],
                                          "generate_st": render["launches"]["K1"],
                                          "generate_df": figs["torus_pc.ply"]["launches"]["K1"]},
                        max_abs_err=max(t["max_err"].values()), max_err=t["max_err"],
-                       ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
-                       bound_by=t["bound_by"], train_shape=tk["K1"],
+                       **{k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                            "tensor_bound_ms", "fp32_bound_ms", "bytes_moved",
+                                            "bound_share")},
+                       train_shape=tk["K1"],
                        figure_shape=dk["k1_figure"])
         elif key == "K4":
             # the render's march runs the bf16 mode (fast_march); the f32
@@ -1080,8 +1112,8 @@ def main():
                                              "bound_ms", "bound_by", "queries", "cloud")},
                        cdist_amin_chunked_ms=dk["cdist_ms"])
         else:
-            # phase 8's numbers; for K2 and K3b bound_ms is the 3xTF32
-            # tensor bound, with the FP32 FMA bound and the design's bytes
+            # phase 8's numbers; bound_ms is the 3xTF32 tensor bound, with
+            # the FP32 FMA bound and the design's bytes
             row["launches"] = run["launches"][key]
             row.update(tk[key])
         row["library_ms"] = None

@@ -1,10 +1,11 @@
 """What the SIREN kernel wrappers (:mod:`.vgh`, :mod:`.vg`) share: the
 ``nvcc`` command, the checks on what the kernels compute, the operands in
-the layout the kernels read, and the launch of the backward kernels K2 and
-K3b (``csrc/siren_bwd.cuh``) with the plan of their grids, workspaces and
-device-memory bytes (:class:`BwdPlan`).  Also the TF32 split the backward
-kernels multiply with (:func:`tf32_split`, :func:`matmul_3xtf32`), in
-torch, so that its accuracy can be rehearsed on the CPU.
+the layout the kernels read, and the launches of the forward kernels K1 and
+K3a (``csrc/siren_fwd.cuh``) and the backward kernels K2 and K3b
+(``csrc/siren_bwd.cuh``) with the plans of their grids, workspaces and
+device-memory bytes (:class:`FwdPlan`, :class:`BwdPlan`).  Also the TF32
+split all four multiply with (:func:`tf32_split`, :func:`matmul_3xtf32`),
+in torch, so that its accuracy can be rehearsed on the CPU.
 
 Nothing here builds or launches at import time.
 """
@@ -31,9 +32,9 @@ TRI_I = (0, 0, 0, 1, 1, 2)
 TRI_J = (0, 1, 2, 1, 2, 2)
 
 _P = ctypes.c_void_p
-# (x, n, w1, b1, wh, bh, n_mm, wl, bl, w0, ww, h, out, stream)
+# (x, n, w1, b1, wh, bh, n_mm, wl, bl, w0, ww, h, grid, frag, out, stream)
 FWD_ARGTYPES = [_P, ctypes.c_int, _P, _P, _P, _P, ctypes.c_int, _P, _P,
-                ctypes.c_float, ctypes.c_float, ctypes.c_int, _P, _P]
+                ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_int, _P, _P, _P]
 # (x, cot, n, w1, b1, wh, bh, n_mm, wl, w0, ww, h, grid, n_split,
 #  split_rows, frag, ws_m, cbuf, mbar, small, wpart, out, stream)
 BWD_ARGTYPES = [_P, _P, ctypes.c_int, _P, _P, _P, _P, ctypes.c_int, _P,
@@ -124,17 +125,68 @@ def weights(params, device):
     return w1, b1, wh, bh, wl, bl
 
 
-def launch_forward(fn, params, spec, x, out):
-    """Call a forward launcher (K1 or K3a) on the current stream; raise on a
-    CUDA error."""
+@dataclass(frozen=True)
+class FwdPlan:
+    """Grid, workspace and device-memory bytes of one launch of the forward
+    kernel (K1: ``tile`` 8 points, ``cols`` 16 output columns; K3a: 16 and
+    8) for ``n`` points of a net of width ``h`` with ``n_mm`` hidden
+    products, on a card with ``sms`` SMs.  Sizes are in floats; see
+    ``csrc/siren_fwd.cuh``."""
+
+    tile: int
+    cols: int
+    h: int
+    n_mm: int
+    n: int
+    sms: int
+
+    @property
+    def n_tiles(self) -> int:
+        return -(-self.n // self.tile)
+
+    @property
+    def grid(self) -> int:
+        """CTAs of fwd_kernel: persistent, at most one per SM; CTA c takes
+        tiles c, c + grid, ..."""
+        return min(self.sms, self.n_tiles)
+
+    @property
+    def frag(self) -> int:
+        """Floats of the fragment workspace: W of every hidden layer."""
+        return self.n_mm * self.h * self.h
+
+    @property
+    def bytes_moved(self) -> int:
+        """Device-memory bytes a launch moves by the design: x read once,
+        the ``cols`` output columns written once, the weights read once and
+        their fragments written once and read once (the tiles re-read them
+        from L2)."""
+        weights = 4 * self.h + self.n_mm * (self.h * self.h + self.h) + self.h + 1
+        return 4 * (self.n * (3 + self.cols) + weights + 2 * self.frag)
+
+
+def forward_plan(spec: SirenSpec, n: int, tile: int, cols: int, sms: int) -> FwdPlan:
+    return FwdPlan(tile=tile, cols=cols, h=spec.hidden[0], n_mm=len(spec.hidden) - 1, n=n,
+                   sms=sms)
+
+
+def launch_forward(fn, tile: int, params, spec, x, out):
+    """Call a forward launcher (K1 or K3a) on the current stream into
+    ``out`` (N, cols); raise on a CUDA error.  The fragment workspace
+    follows :func:`forward_plan`."""
     dev = x.device
+    plan = forward_plan(spec, x.shape[0], tile, out.shape[1],
+                        torch.cuda.get_device_properties(dev).multi_processor_count)
+    if plan.n_tiles == 0:
+        return
     w1, b1, wh, bh, wl, bl = weights(params, dev)
     w0, ww = freqs(spec)
+    frag = torch.empty(plan.frag, device=dev, dtype=torch.float32)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(x.data_ptr(), x.shape[0], w1.data_ptr(), b1.data_ptr(), wh.data_ptr(),
-                bh.data_ptr(), len(params) - 2, wl.data_ptr(), bl.data_ptr(), float(w0),
-                float(ww), spec.hidden[0], out.data_ptr(), stream)
+        rc = fn(x.data_ptr(), plan.n, w1.data_ptr(), b1.data_ptr(), wh.data_ptr(),
+                bh.data_ptr(), plan.n_mm, wl.data_ptr(), bl.data_ptr(), float(w0), float(ww),
+                plan.h, plan.grid, frag.data_ptr(), out.data_ptr(), stream)
     if rc:
         raise RuntimeError(f"kernel launch failed with CUDA error {rc}")
 
@@ -271,7 +323,7 @@ def tf32_round(a: torch.Tensor) -> torch.Tensor:
 
 
 def tf32_split(a: torch.Tensor):
-    """(hi, lo) = (rna(a), rna(a - hi)): the operand split of the backward
+    """(hi, lo) = (rna(a), rna(a - hi)): the operand split of the SIREN
     kernels.  hi + lo is a to within 2^-22 |a|, exactly when a - hi fits in
     11 significant bits."""
     hi = tf32_round(a)
@@ -279,9 +331,9 @@ def tf32_split(a: torch.Tensor):
 
 
 def matmul_3xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a @ b as the kernels form it: lo*hi + hi*lo + hi*hi, each product of
-    TF32 values exact in float32, summed in float32 (one float32 matmul over
-    the three stacked terms)."""
+    """a @ b as the kernels' hidden products form it: lo*hi + hi*lo +
+    hi*hi, each product of TF32 values exact in float32, summed in float32
+    (one float32 matmul over the three stacked terms)."""
     ah, al = tf32_split(a)
     bh, bl = tf32_split(b)
     return torch.cat([al, ah, ah], dim=1) @ torch.cat([bh, bl, bh], dim=0)

@@ -1,9 +1,10 @@
 """Fused SIREN value + gradient: the forward kernel K3a, its hand-derived
 VJP K3b, and the autograd op that pairs them.
 
-Both kernels are in ``csrc/vg.cu``: K3a replaces ``diffudf_tpu/ops/
-pallas_vg.py::_vg_fwd_kernel`` and K3b (on ``csrc/siren_bwd.cuh``, the
-backward design of K2) ``_vg_bwd_kernel``.  :func:`vg` and
+Both kernels are in ``csrc/vg.cu``: K3a (on ``csrc/siren_fwd.cuh``, the
+forward design of K1) replaces ``diffudf_tpu/ops/pallas_vg.py::
+_vg_fwd_kernel`` and K3b (on ``csrc/siren_bwd.cuh``, the backward design of
+K2) ``_vg_bwd_kernel``.  :func:`vg` and
 :func:`vg_bwd` are their wrappers: on a CUDA tensor they launch the kernel
 (and raise on any input the kernel does not take); on a CPU tensor they run
 the plain torch versions :func:`vg_reference` and :func:`vg_bwd_reference`,
@@ -29,7 +30,8 @@ from ..native.build import build_shared
 from . import kernel_io as kio
 from .sincos import fast_sincos
 
-_SOURCES = kio.sources("vg.cu", "siren_taylor.cuh", "siren_bwd.cuh", "sincos.cuh")
+_SOURCES = kio.sources("vg.cu", "siren_fwd.cuh", "siren_bwd.cuh", "siren_tile.cuh",
+                       "sincos.cuh")
 
 # kernel launches since the counts were last set to 0: K3a, K3b
 launches = 0
@@ -48,8 +50,8 @@ def _lib():
     lib.vg_launch.restype = ctypes.c_int
     lib.vg_bwd_launch.argtypes = kio.BWD_ARGTYPES
     lib.vg_bwd_launch.restype = ctypes.c_int
-    lib.vg_bwd_tile.argtypes = []
-    lib.vg_bwd_tile.restype = ctypes.c_int
+    lib.vg_tile.argtypes = []
+    lib.vg_tile.restype = ctypes.c_int
     return lib
 
 
@@ -147,7 +149,7 @@ def vg(params, spec: SirenSpec, x: torch.Tensor):
     kio.check_width(spec, "vg")
     out = torch.empty((x.shape[0], 8), device=x.device, dtype=torch.float32)
     if x.shape[0]:
-        kio.launch_forward(lib.vg_launch, params, spec, x, out)
+        kio.launch_forward(lib.vg_launch, lib.vg_tile(), params, spec, x, out)
         launches += 1
     return out[:, 0], out[:, 1:4]
 
@@ -168,7 +170,7 @@ def vg_bwd(params, spec: SirenSpec, x: torch.Tensor, cot: torch.Tensor):
     cot = kio.operand(cot, x.device, "cot")
     lib = _lib()
     kio.check_width(spec, "vg_bwd")
-    grads = kio.launch_backward(lib.vg_bwd_launch, lib.vg_bwd_tile(), 4, params, spec, x, cot)
+    grads = kio.launch_backward(lib.vg_bwd_launch, lib.vg_tile(), 4, params, spec, x, cot)
     bwd_launches += int(x.shape[0] > 0)
     return grads
 

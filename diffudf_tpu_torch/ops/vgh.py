@@ -1,10 +1,12 @@
 """Fused SIREN value + gradient + packed Hessian: the forward kernel K1, its
 hand-derived VJP K2, and the autograd op that pairs them.
 
-K1 (``csrc/vgh.cu``) replaces ``diffudf_tpu/ops/pallas_vgh.py::_vgh_kernel``;
-K2 (``csrc/vgh_bwd.cu`` on ``csrc/siren_bwd.cuh``: 3xTF32 tensor-core
-products, W-bar as a split-K product of each layer's carries and m-bars)
-replaces ``diffudf_tpu/ops/pallas_vgh_vjp.py::_vgh_bwd_kernel``.  :func:`vgh` and
+K1 (``csrc/vgh.cu`` on ``csrc/siren_fwd.cuh``: a persistent tile kernel
+with 3xTF32 tensor-core products) replaces
+``diffudf_tpu/ops/pallas_vgh.py::_vgh_kernel``; K2 (``csrc/vgh_bwd.cu`` on
+``csrc/siren_bwd.cuh``: the same products, W-bar as a split-K product of
+each layer's carries and m-bars) replaces
+``diffudf_tpu/ops/pallas_vgh_vjp.py::_vgh_bwd_kernel``.  :func:`vgh` and
 :func:`vgh_bwd` are their wrappers: on a CUDA tensor they launch the kernel
 (and raise on any input the kernel does not take); on a CPU tensor they run
 the plain torch versions :func:`vgh_reference` and :func:`vgh_bwd_reference`,
@@ -32,8 +34,8 @@ from . import kernel_io as kio
 from .kernel_io import TRI_I as _TRI_I, TRI_J as _TRI_J, check_spec  # noqa: F401
 from .sincos import fast_sincos
 
-_SOURCES = kio.sources("vgh.cu", "sincos.cuh")
-_BWD_SOURCES = kio.sources("vgh_bwd.cu", "siren_bwd.cuh", "sincos.cuh")
+_SOURCES = kio.sources("vgh.cu", "siren_fwd.cuh", "siren_tile.cuh", "sincos.cuh")
+_BWD_SOURCES = kio.sources("vgh_bwd.cu", "siren_bwd.cuh", "siren_tile.cuh", "sincos.cuh")
 
 # kernel launches since the counts were last set to 0: K1, K2
 launches = 0
@@ -55,6 +57,8 @@ def _lib():
     lib = ctypes.CDLL(build())
     lib.vgh_launch.argtypes = kio.FWD_ARGTYPES
     lib.vgh_launch.restype = ctypes.c_int
+    lib.vgh_tile.argtypes = []
+    lib.vgh_tile.restype = ctypes.c_int
     return lib
 
 
@@ -81,9 +85,9 @@ def _first_layer(params, spec, x):
     return d1, d2, torch.cat(rows, dim=0)  # (10N, h): [a; J0..J2; H0..H5]
 
 
-def _hidden_layer(layer, ww, carry, n):
+def _hidden_layer(layer, ww, carry, n, product=torch.matmul):
     """One hidden layer of the Taylor-mode forward: -> (m, d1, d2, carry')."""
-    m = carry @ layer["w"]
+    m = product(carry, layer["w"])
     s, c = fast_sincos(ww * (m[:n] + layer["b"]))
     d1 = ww * c
     d2 = -(ww * ww) * s
@@ -94,14 +98,18 @@ def _hidden_layer(layer, ww, carry, n):
     return m, d1, d2, torch.cat(rows, dim=0)
 
 
-def vgh_reference(params, spec: SirenSpec, x: torch.Tensor):
-    """K1's arithmetic in torch: (f (N,), g (N, 3), h6 (N, 6))."""
+def vgh_reference(params, spec: SirenSpec, x: torch.Tensor, product=torch.matmul):
+    """K1's arithmetic in torch: (f (N,), g (N, 3), h6 (N, 6)).
+
+    ``product(carry, w)`` forms each hidden layer's (10N, h) x (h, h)
+    product; another than the default rehearses a kernel's arithmetic (for
+    example ``kernel_io.matmul_3xtf32``)."""
     check_spec(spec)
     _, ww = kio.freqs(spec)
     n = x.shape[0]
     _, _, carry = _first_layer(params, spec, x)
     for layer in params[1:-1]:
-        carry = _hidden_layer(layer, ww, carry, n)[3]
+        carry = _hidden_layer(layer, ww, carry, n, product)[3]
     out = (carry @ params[-1]["w"])[:, 0].reshape(10, n)
     return out[0] + params[-1]["b"][0], out[1:4].T, out[4:10].T
 
@@ -205,7 +213,7 @@ def vgh(params, spec: SirenSpec, x: torch.Tensor):
     kio.check_width(spec, "vgh")
     out = torch.empty((x.shape[0], 16), device=x.device, dtype=torch.float32)
     if x.shape[0]:
-        kio.launch_forward(lib.vgh_launch, params, spec, x, out)
+        kio.launch_forward(lib.vgh_launch, lib.vgh_tile(), params, spec, x, out)
         launches += 1
     return out[:, 0], out[:, 1:4], out[:, 4:10]
 

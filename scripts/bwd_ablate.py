@@ -1,7 +1,8 @@
 #!/usr/bin/env python
-"""Where K2's time and accuracy go: variants of ``csrc/siren_bwd.cuh``, each
-built from a patched copy of the sources and run on one GPU at the s1 step's
-shape (a random-init 8x256 SIREN, 9,990 rows, unit-normal cotangents):
+"""Where K2's time and accuracy go: variants of ``csrc/siren_bwd.cuh`` and
+``csrc/siren_tile.cuh``, each built from a patched copy of the sources and
+run on one GPU at the s1 step's shape (a random-init 8x256 SIREN, 9,990
+rows, unit-normal cotangents):
 
     python scripts/bwd_ablate.py
 
@@ -21,7 +22,6 @@ ignored build directory.
 
 import ctypes
 import os
-import shutil
 import subprocess
 import sys
 
@@ -33,13 +33,11 @@ sys.path.insert(0, REPO)
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from bwd_kernel_check import kernel_times  # noqa: E402
+from fwd_kernel_check import build  # noqa: E402
 from diffudf_tpu_torch.fields.siren import (  # noqa: E402
     SirenSpec, flatten_params, init_siren, params_from_jax)
-from diffudf_tpu_torch.native.build import BUILD_DIR  # noqa: E402
 from diffudf_tpu_torch.ops import kernel_io as kio  # noqa: E402
 from diffudf_tpu_torch.ops import vgh  # noqa: E402
-
-SOURCES = ("vgh_bwd.cu", "siren_bwd.cuh", "sincos.cuh")
 
 # the promotion: a two-k-step partial in tmp, then added into acc
 TILE_TMP = ("      float tmp[4][4];\n#pragma unroll\n      for (int ks = 0; ks < 2; ++ks) {\n"
@@ -64,29 +62,9 @@ VARIANTS = {"as built": (), "no promotion": NO_PROMOTION, "no products": NO_PROD
             "no stores": NO_STORES}
 
 
-def build(tag, patches):
-    """K2's library from patched copies of its sources; -> its launcher."""
-    src_dir = os.path.join(BUILD_DIR, "ablate", tag.replace(" ", "_"))
-    shutil.rmtree(src_dir, ignore_errors=True)
-    os.makedirs(src_dir)
-    for name in SOURCES:
-        with open(os.path.join(kio.CSRC, name)) as fh:
-            text = fh.read()
-        if name == "siren_bwd.cuh":
-            for old, new in patches:
-                if old not in text:
-                    raise RuntimeError(f"{tag}: the source no longer holds {old[:60]!r}")
-                text = text.replace(old, new)
-        with open(os.path.join(src_dir, name), "w") as fh:
-            fh.write(text)
-    cmd = kio.nvcc_command()
-    cmd[cmd.index(kio.CSRC)] = src_dir
-    out = os.path.join(src_dir, "vgh_bwd.so")
-    proc = subprocess.run(cmd + ["-o", out, os.path.join(src_dir, "vgh_bwd.cu")],
-                          capture_output=True, text=True)
-    if proc.returncode:
-        raise RuntimeError(f"{tag}: build failed\n{proc.stderr}")
-    lib = ctypes.CDLL(out)
+def launcher(tag, patches):
+    """K2's launcher from patched copies of the sources."""
+    lib, _ = build(f"ablate_{tag.replace(' ', '_')}", kio.CSRC, "vgh_bwd.cu", patches)
     lib.vgh_bwd_launch.argtypes = kio.BWD_ARGTYPES
     lib.vgh_bwd_launch.restype = ctypes.c_int
     return lib.vgh_bwd_launch
@@ -109,7 +87,7 @@ def main():
     exact = flatten_params(vgh.vgh_bwd_reference(p64, spec, x.double(), cot.double()))
     e_p = (want - exact).abs()
     for tag, patches in VARIANTS.items():
-        fn = build(tag, patches)
+        fn = launcher(tag, patches)
         launch = lambda: kio.launch_backward(fn, 8, 10, params, spec, x, cot)  # noqa: E731
         e_k = (flatten_params(launch()).double() - exact).abs()
         times = kernel_times(launch)

@@ -94,6 +94,53 @@ def test_vg_kernel_matches_plain_version(hidden, n):
         assert float((a - b).abs().max()) <= TOL[k], k
 
 
+# The forward kernels K1 and K3a (csrc/siren_fwd.cuh, 3xTF32 products) at
+# every width class the tiling treats apart: each output element within
+# TOL + RTOL * |plain| of the plain version, the element gate of
+# chip_smoke.py's phase 8.
+FWD = {"vgh": (tv, tv.vgh, tv.vgh_reference, ("f", "g", "h6")),
+       "vg": (tg, tg.vg, tg.vg_reference, ("f", "g"))}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["vgh", "vg"])
+@pytest.mark.parametrize("hidden,n", [
+    ((32,) * 4, 1001),   # one warp a CTA; a ragged last tile of 8 and of 16
+    ((96,) * 3, 1003),
+    ((160,) * 3, 333),
+    ((64,) * 3, 5),      # fewer points than one tile
+    ((64,), 1001),       # one hidden layer: no hidden product (n_mm = 0)
+])
+def test_forward_kernel_matches_plain_version(kernel, hidden, n):
+    """K1 / K3a against their plain versions on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: K1 and K3a have no CPU mode")
+    mod, fn, plain, names = FWD[kernel]
+    spec, params, x, _ = _case(hidden, n)
+    before = mod.launches
+    got = fn(params, spec, x)
+    torch.cuda.synchronize()
+    assert mod.launches == before + 1
+    for k, a, b in zip(names, got, plain(params, spec, x)):
+        assert a.shape == b.shape
+        assert float(((a - b).abs() / (TOL[k] + RTOL * b.abs())).max()) <= 1.0, k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["vgh", "vg"])
+def test_forward_kernel_is_bit_reproducible(kernel):
+    """Two launches on the same input give the same bits: one writer per
+    output element, a fixed-order head sum, no atomics."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    _, fn, _, _ = FWD[kernel]
+    spec, params, x, _ = _case((256,) * 8, 9990, seed=4)
+    first = fn(params, spec, x)
+    second = fn(params, spec, x)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("kernel", ["vgh_bwd", "vg_bwd"])
 @pytest.mark.parametrize("hidden,n", [
