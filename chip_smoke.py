@@ -23,8 +23,8 @@ Phases, in order, each printing its seconds:
   3. kernel   — K1 vs ``vgh_reference`` on 65,536 points of a random-init
                 8x256 net, with the tolerances of the JAX package's Pallas
                 test (f 1e-5, g 1e-4, h6 5e-3, absolute), and its times
-                beside its 3xTF32 tensor bound, its FP32 FMA bound and the
-                bytes its design moves;
+                beside its FP32 FMA bound (K1 sums in FP32 FMA), the 3xTF32
+                tensor bound and the bytes its design moves;
   4. fixture  — fits the 8x256 SIREN to g(d) = d*tanh(10 d) of the sphere
                 |x| = 0.7 by value regression (autograd + Adam, no kernels),
                 saved as a JAX-format checkpoint in a temporary directory;
@@ -34,9 +34,7 @@ Phases, in order, each printing its seconds:
                 of each mesh against 100k points of the sphere;
   6. timing   — K1 against its plain version, element by element, and both
                 against the plain version in float64, at the shape the
-                slice gave K1; then their times and K1's bounds.  A failed
-                gate of this phase is reported at once and raised after
-                phase 12, so that one run still measures every path;
+                slice gave K1; then their times and K1's bounds;
   7. train    — preprocesses data/demo/torus.obj (100k points) and runs
                 ``diffudf_tpu_torch.cli.train.main`` on the recipe of
                 results/results_demo_pc.csv; gates: K1, K2, K3a and K3b
@@ -57,9 +55,9 @@ Phases, in order, each printing its seconds:
                 the slice's shapes (9,990 surface rows for K1 and K2,
                 19,980 off-surface rows for K3a and K3b, the loss's own
                 cotangents for K2 and K3b); then their times and bounds:
-                all four multiply on the tensor cores in 3xTF32, so the
-                tensor bound, with the FP32 FMA one and the device-memory
-                bytes their design moves beside it;
+                the FP32 FMA bound and the 3xTF32 tensor bound (K1 sums in
+                FP32 FMA, the other three multiply on the tensor cores in
+                3xTF32) and the device-memory bytes their design moves;
   9. render   — ``diffudf_tpu_torch.cli.generate_st.main`` in process on
                 configs/st_cfg.json's rendering config (720x720, 3 passes,
                 the mixed bf16 march) with the trained torus; gates: K4
@@ -89,9 +87,8 @@ Phases, in order, each printing its seconds:
                 points beside its bounds.
 
 Then a ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}`` line.
-Any failed phase raises (phase 6's gates after phase 12), and the script
-exits non-zero without those two lines.  Files go to a temporary directory
-and the build directory only.
+Any failed phase raises, and the script exits non-zero without those two
+lines.  Files go to a temporary directory and the build directory only.
 """
 
 import concurrent.futures
@@ -123,7 +120,7 @@ MAX_ACTIVE_BLOCK_SHARE = 0.5
 MAX_CHAMFER_L1 = 0.015
 # Peaks of one H100 SXM at a 700 W power limit (NVIDIA data sheet).
 PEAK_FP32_FLOPS = 67e12
-PEAK_TF32_FLOPS = 495e12  # dense TF32 tensor rate; K1-K3b run 3 TF32 products a product
+PEAK_TF32_FLOPS = 495e12  # dense TF32 tensor rate; K2, K3a, K3b run 3 TF32 products a product
 PEAK_BYTES_PER_S = 3.35e12
 
 RADIUS, ALPHA, N_GRID = 0.7, 10.0, 256
@@ -168,8 +165,6 @@ PEAK_BF16_FLOPS = 989e12  # dense bf16 tensor rate, H100 SXM at 700 W
 FIGURE_WIDTH = 512
 K5_TOL = 1e-4
 CHAMFER_RTOL = {"L1": 1e-6, "L2": 1e-4, "NC": 1e-4}
-# Gates that failed in a phase that lets the later phases run (phase 6)
-FAILED = []
 
 
 def phase(name):
@@ -197,7 +192,7 @@ def siren_kernel_bound(n_points, hidden, rows, products, row_bytes, weight_copie
     a point and ``weight_copies`` times the weights (read, and for a VJP
     the gradient written).  The operations run ``passes`` times at ``rate``:
     FP32 FMA by default, or 3 TF32 passes at the tensor rate for the 3xTF32
-    products of K1-K3b."""
+    products of K2, K3a and K3b."""
     h, n_mm = hidden[0], len(hidden) - 1
     flops = n_points * (2 * 3 * h + n_mm * products * rows * 2 * h * h + rows * 2 * h)
     weights = 4 * (4 * h + n_mm * (h * h + h) + h + 1)
@@ -214,34 +209,37 @@ SIREN_KERNELS = {"K1": (10, 1, 16, 1), "K2": (10, 3, 16, 2), "K3a": (4, 1, 8, 1)
 
 def kernel_bounds(name, n_points):
     """A SIREN kernel's bounds at n_points of the 8x256 net: the 3xTF32
-    tensor bound (``bound_ms``, three TF32 products at the tensor rate), the
-    FP32 FMA bound beside it, and the device-memory bytes of its design
-    (``FwdPlan`` or ``BwdPlan.bytes_moved``)."""
+    tensor bound (three TF32 products at the tensor rate), the FP32 FMA
+    bound, and the device-memory bytes of its design (``FwdPlan`` or
+    ``BwdPlan.bytes_moved``).  ``bound_ms`` is the bound of the product the
+    kernel runs: FP32 FMA for K1, 3xTF32 for K2, K3a and K3b."""
     from diffudf_tpu_torch.fields.siren import SirenSpec
     from diffudf_tpu_torch.ops import kernel_io as kio
     from diffudf_tpu_torch.ops import vg, vgh
 
     rows, products, cols, copies = SIREN_KERNELS[name]
     shape = (rows, products, 4 * (3 + cols), copies)
-    tensor, by = siren_kernel_bound(n_points, HIDDEN, *shape, rate=PEAK_TF32_FLOPS, passes=3)
-    fp32, _ = siren_kernel_bound(n_points, HIDDEN, *shape)
+    tensor, tby = siren_kernel_bound(n_points, HIDDEN, *shape, rate=PEAK_TF32_FLOPS, passes=3)
+    fp32, fby = siren_kernel_bound(n_points, HIDDEN, *shape)
     spec, sms = SirenSpec(hidden=HIDDEN), torch.cuda.get_device_properties(0).multi_processor_count
     if name == "K1":
-        plan = kio.forward_plan(spec, n_points, vgh._lib().vgh_tile(), cols, sms)
+        plan = kio.forward_plan(spec, n_points, vgh._lib().vgh_tile(), cols, False, sms)
     elif name == "K3a":
-        plan = kio.forward_plan(spec, n_points, vg._lib().vg_tile(), cols, sms)
+        plan = kio.forward_plan(spec, n_points, vg._lib().vg_tile(), cols, True, sms)
     else:
         tile = vgh._bwd_lib().vgh_bwd_tile() if name == "K2" else vg._lib().vg_tile()
         plan = kio.backward_plan(spec, n_points, rows, tile, sms)
-    return {"bound_ms": tensor, "bound_by": by, "tensor_bound_ms": tensor,
+    bound, by = (fp32, fby) if name == "K1" else (tensor, tby)
+    return {"bound_ms": bound, "bound_by": by, "tensor_bound_ms": tensor,
             "fp32_bound_ms": fp32, "bytes_moved": plan.bytes_moved}
 
 
 def bounds_text(ms, b):
     """A kernel's time against its 3xTF32 tensor bound, FP32 FMA bound and
     design bytes, as phases 3, 6, 8 and 12 print it."""
-    return (f"tensor bound (3xTF32) {b['tensor_bound_ms']:.3f} ms ({b['bound_by']}), "
-            f"{b['tensor_bound_ms'] / ms:.1%} of it; FP32 FMA bound {b['fp32_bound_ms']:.3f} ms; "
+    return (f"tensor bound (3xTF32) {b['tensor_bound_ms']:.3f} ms, "
+            f"{b['tensor_bound_ms'] / ms:.1%} of it; FP32 FMA bound {b['fp32_bound_ms']:.3f} ms, "
+            f"{b['fp32_bound_ms'] / ms:.1%} of it; bound by {b['bound_by']}; "
             f"the design moves {b['bytes_moved'] / 1e9:.4f} GB "
             f"({1e3 * b['bytes_moved'] / PEAK_BYTES_PER_S:.3f} ms at {PEAK_BYTES_PER_S / 1e12} TB/s)")
 
@@ -474,8 +472,7 @@ def timing_phase(model_path, n_points):
     on each component K1's largest and RMS distance from it may be at most
     WITNESS times the float32 plain version's.  Each output's worst distance
     from float64 over TOL + RTOL |float64| is printed for K1 and the plain
-    version beside the gates; it is no gate.  Failed gates go to FAILED and
-    the phase goes on to the times."""
+    version beside the gates; it is no gate."""
     from diffudf_tpu_torch.fields.siren import SirenSpec
     from diffudf_tpu_torch.ops import vgh
     from diffudf_tpu_torch.train.checkpoint import load_params
@@ -526,8 +523,7 @@ def timing_phase(model_path, n_points):
                               f"{WITNESS} x the float32 plain version's {r[n][1]}")
     del want, exact
     if failed:
-        print(f"[timing] FAILED: {'; '.join(failed)}", flush=True)
-        FAILED.extend(f"phase 6: {m}" for m in failed)
+        raise AssertionError("; ".join(failed))
     ms = cuda_ms(lambda: vgh.vgh(params, spec, x), 20)
     plain_ms = cuda_ms(plain, 3)
     b = kernel_bounds("K1", n_points)
@@ -758,9 +754,9 @@ def train_kernel_phase(params, cfg_path):
     if failed:
         raise AssertionError("; ".join(failed))
 
-    # times at the slice's shapes, and bounds: all four run their products
-    # on the tensor cores, so their bound is the 3xTF32 one, with the FP32
-    # FMA bound and the bytes of their design beside it
+    # times at the slice's shapes, and bounds: K1's is the FP32 FMA one, the
+    # others' the 3xTF32 one, each with the other bound and the bytes of
+    # their design beside it
     runs = {
         "K1": (lambda: vgh.vgh(params, spec, surf), lambda: vgh.vgh_reference(params, spec, surf),
                len(surf)),
@@ -1074,14 +1070,12 @@ def main():
         rk = render_kernel_phase(render["cfg"], render["model_path"])
         figs = figures_phase(tmp, run["data_dir"])
         dk = distance_kernel_phase(run["data_dir"], run["params"])
-    if FAILED:
-        raise AssertionError("; ".join(FAILED))
     rows = []
     for key, (name, source, replaces) in KERNELS.items():
         row = {"name": name, "route": "cuda", "source": source, "replaces": replaces}
         if key == "K1":
             # K1 runs on every path: its numbers are those at the extraction
-            # shape (phase 6), bound_ms its 3xTF32 tensor bound; phase 8's
+            # shape (phase 6), bound_ms its FP32 FMA bound; phase 8's
             # are at the training shape and phase 12's at the figure's
             row.update(launches=run["launches"]["K1"],
                        launches_by_path={"generate_mc": k1_mc_launches,

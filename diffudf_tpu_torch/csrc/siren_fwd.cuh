@@ -9,24 +9,33 @@
 //
 // What bounds it.  Per point and hidden layer one (R, h) x (h, h) product:
 // 9.18 MFLOP a point for K1 at 8x256 and 3.67 for K3a, against 76 and 44
-// bytes of input and output.  On the tensor cores as three TF32 products
-// (3xTF32, float32 accuracy) that is 3 * flop / 495e12 s: 0.556 ms for K1
-// at 9,990 points and 0.445 ms for K3a at 19,980 (FP32 FMA on CUDA cores:
-// 1.369 and 1.096 ms).  The bytes (x, the output, the weights and their
-// fragments once) take a few microseconds at 3.35 TB/s.
+// bytes of input and output.  In FP32 FMA on the CUDA cores that takes
+// flop / 67e12 s (1.369 ms for K1 at 9,990 points); on the tensor cores as
+// three TF32 products (3xTF32, float32 accuracy) 3 * flop / 495e12 s
+// (0.445 ms for K3a at 19,980 points).  The bytes (x, the output and the
+// weights once) take a few microseconds at 3.35 TB/s.
 //
-// The design: two kernels on one stream.
-//  1. frag_kernel lays W of every hidden layer out in B-fragment order, n_mm
-//     h^2 floats that stay in L2 (one orientation: the forward needs no W^T).
-//  2. fwd_kernel<R, T>: a persistent grid of at most one CTA per SM, h
-//     threads, CTA c walking tiles c, c + G, ... of T points (R*T rows: 80
-//     for K1, 64 for K3a) in the register layout Tile<R, T>.  Each tile runs
-//     the first layer, then per hidden layer stage_tile, tile_product (3xTF32
-//     mma.sync, promoted into float32 every two k-steps) and the activation,
-//     all of siren_tile.cuh, the forward recompute of the backward kernels'
-//     tile_kernel without its stores.  The head sums each row over the
-//     thread's columns, then over the four lanes of a row group and, in a
-//     fixed order, over the warps through shared memory.
+// The design: fwd_kernel<R, T, P>, a persistent grid of at most one CTA per
+// SM, h threads, CTA c walking tiles c, c + G, ... of T points (R*T rows: 80
+// for K1, 64 for K3a) in the register layout Tile<R, T>.  Each tile runs
+// first_layer, then per hidden layer the product and activate (siren_tile.
+// cuh); the head sums each row over the thread's columns, then over the
+// four lanes of a row group and, in a fixed order, over the warps through
+// shared memory.  The product P is one of two:
+//  - Product::kFp32 (K1): fma_product, FP32 FMA on the CUDA cores, every
+//    element summed over k = 0, 1, ..., h - 1 in turn from 0, the order of
+//    a float32 matrix product that gives each output element one FMA
+//    chain, so that K1 rounds as its plain version does (vgh.cu is also
+//    built without FMA contraction).  Its h6 rows hold d2 J J terms that
+//    the sin(30 m) layers amplify: a float32 sum taken in another order,
+//    3xTF32's too, lands further from the plain version than the element
+//    tolerance K1 is held to (scripts/fwd_gate_check.py).  W's rows come
+//    from L2 through a shared ring; nothing is laid out beforehand.
+//  - Product::kTf32x3 (K3a): stage_tile and tile_product, 3xTF32 mma.sync
+//    promoted into float32 every two k-steps, the forward recompute of the
+//    backward kernels' tile_kernel.  frag_kernel first lays W of every
+//    hidden layer out in B-fragment order (one orientation), n_mm h^2
+//    floats that stay in L2.
 // Nothing is allocated and nothing goes through device memory but x, the
 // weights, the fragments and the output; no atomics: two launches on the
 // same input give the same bits.
@@ -45,10 +54,116 @@
 namespace dudf {
 namespace fwd {
 
-template <int R, int T>
+enum class Product { kFp32, kTf32x3 };
+
+constexpr int kChunk = 16;   // W rows a slot of fma_product's ring
+constexpr int kStages = 3;   // slots of the ring
+
+// Shared memory of fma_product for MT m16 tiles of rows: thread (g, t4)
+// holds the 2 MT rows 8m + g, m < 2 MT, of the tile.  A is staged
+// transposed, a k-row of it holding row group g's 2 MT values at g * kMg
+// (padded to float4s, so that a thread reads its rows as float4s without
+// bank conflicts), then the ring of W rows.
+template <int MT>
+struct FmaTile {
+  static constexpr int kM = 2 * MT;
+  static constexpr int kMg = (kM + 3) / 4 * 4;
+  static constexpr int kLd = 8 * kMg;  // floats of a k-row of A^T
+  static constexpr int smem_bytes(int h) { return 4 * (h * kLd + kStages * kChunk * h); }
+};
+
+// The thread's accumulators -> A^T in shared memory: element (row 8m + g,
+// column j) at at[j * kLd + g * kMg + m].
+template <int MT>
+__device__ __forceinline__ void stage_rows(float* at, const float* acc, int warp, int lane) {
+  using F = FmaTile<MT>;
+  const int g = lane >> 2, t4 = lane & 3;
+#pragma unroll
+  for (int i = 0; i < MT; ++i) {
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int j = 32 * warp + 8 * u + 2 * t4 + e;
+        const float* c = acc + (i * 4 + u) * 4 + e;  // rows 16i + g and 16i + 8 + g
+        *reinterpret_cast<float2*>(at + j * F::kLd + g * F::kMg + 2 * i) =
+            make_float2(c[0], c[2]);
+      }
+    }
+  }
+}
+
+// acc (the thread's 2 MT rows by its 8 columns 32 warp + 8u + 2 t4 + e) =
+// A (staged by stage_rows) times W (h x h, row-major in device memory), in
+// FP32 FMA, each element's terms added in k order onto 0.  The block's h
+// threads fill the ring: the chunk of W rows kStages - 1 ahead is requested
+// once every thread is done with the slot it goes into.
+template <int MT>
+__device__ __forceinline__ void fma_product(float* acc, const float* at,
+                                            const float* __restrict__ w, float* ring, int h,
+                                            int warp, int lane) {
+  using F = FmaTile<MT>;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int n_chunks = h / kChunk, per_chunk = kChunk * h / 4;  // float4s a chunk
+  auto fetch = [&](int c) {
+    if (c < n_chunks) {
+      const float4* src =
+          reinterpret_cast<const float4*>(w + static_cast<int64_t>(c) * kChunk * h);
+      float4* dst = reinterpret_cast<float4*>(ring + (c % kStages) * kChunk * h);
+      for (int i = threadIdx.x; i < per_chunk; i += blockDim.x) cp_async16(dst + i, src + i, true);
+    }
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int c = 0; c < kStages - 1; ++c) fetch(c);
+#pragma unroll
+  for (int i = 0; i < MT * 16; ++i) acc[i] = 0.0f;
+  const float* a_at = at + g * F::kMg;
+  const int col = 32 * warp + 2 * t4;
+  for (int c = 0; c < n_chunks; ++c) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();  // chunk c is in; every thread is done with chunk c - 1
+    fetch(c + kStages - 1);
+    const float* wc = ring + (c % kStages) * kChunk * h + col;
+    const float* ac = a_at + c * kChunk * F::kLd;
+#pragma unroll
+    for (int kk = 0; kk < kChunk; ++kk) {
+      float a[F::kMg];
+#pragma unroll
+      for (int m = 0; m < F::kMg; m += 4) {
+        const float4 v = *reinterpret_cast<const float4*>(ac + kk * F::kLd + m);
+        a[m] = v.x;
+        a[m + 1] = v.y;
+        a[m + 2] = v.z;
+        a[m + 3] = v.w;
+      }
+      float2 b[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) b[u] = *reinterpret_cast<const float2*>(wc + kk * h + 8 * u);
+#pragma unroll
+      for (int m = 0; m < F::kM; ++m) {
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          float* d = acc + ((m >> 1) * 4 + u) * 4 + 2 * (m & 1);
+          d[0] = fmaf(a[m], b[u].x, d[0]);
+          d[1] = fmaf(a[m], b[u].y, d[1]);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+}
+
+template <int R, int T, Product P>
+constexpr int smem_bytes(int h) {
+  return P == Product::kFp32 ? FmaTile<Tile<R, T>::MT>::smem_bytes(h)
+                              : Tile<R, T>::smem_bytes(h);
+}
+
+template <int R, int T, Product P>
 __global__ void __launch_bounds__(kMaxH, 1)
 fwd_kernel(const float* __restrict__ x, int n, int n_tiles, const float* __restrict__ w1,
-           const float* __restrict__ b1, const float4* __restrict__ frag,
+           const float* __restrict__ b1, const float* __restrict__ wsrc,
            const float* __restrict__ bh, int n_mm, const float* __restrict__ wl,
            const float* __restrict__ bl, float w0, float ww, int h, float* __restrict__ out,
            int out_stride) {
@@ -56,18 +171,15 @@ fwd_kernel(const float* __restrict__ x, int n, int n_tiles, const float* __restr
   constexpr int RT = L::RT, MT = L::MT, TH = L::TH, kRing = L::kRing;
   constexpr int kWarps = kMaxH / 32;
   extern __shared__ float4 smem4[];
-  const int lda = h + kPad;
-  float* a_hi = reinterpret_cast<float*>(smem4);  // (RT, h + kPad): TF32 hi of the carry
-  float* a_lo = a_hi + RT * lda;                  // and its lo
+  float* smem = reinterpret_cast<float*>(smem4);
   __shared__ float xs[T * 3];
   __shared__ float part[RT * kWarps];  // part[r * kWarps + w]: warp w's sum of row r
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t4 = lane & 3;
   const int n_warps = blockDim.x >> 5;
-  // this lane's slots of its warp's ring: [kRing][4][32 lanes] float4
-  float4* ring = smem4 + (2 * RT * lda) / 4 + warp * (kRing * 4 * 32) + lane;
-  const int64_t frag_layer = static_cast<int64_t>(h) * h / 4;  // float4s a layer
+  // per hidden layer, W (kFp32: row-major) or its fragments (kTf32x3)
+  const int64_t w_layer = static_cast<int64_t>(h) * h;
   float acc[RT];
 
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
@@ -80,9 +192,23 @@ fwd_kernel(const float* __restrict__ x, int n, int n_tiles, const float* __restr
 
     first_layer<R, T>(acc, xs, w1, b1, w0, h, warp, lane);
     for (int l = 0; l < n_mm; ++l) {
-      stage_tile<MT>(a_hi, a_lo, lda, acc, warp, lane);
-      __syncthreads();
-      tile_product<MT, kRing>(acc, a_hi, a_lo, lda, frag + l * frag_layer, ring, h, warp, lane);
+      if constexpr (P == Product::kFp32) {
+        float* at = smem;  // (h, kLd): A^T
+        stage_rows<MT>(at, acc, warp, lane);
+        __syncthreads();
+        fma_product<MT>(acc, at, wsrc + l * w_layer, at + h * FmaTile<MT>::kLd, h, warp, lane);
+      } else {
+        const int lda = h + kPad;
+        float* a_hi = smem;             // (RT, h + kPad): TF32 hi of the carry
+        float* a_lo = a_hi + RT * lda;  // and its lo
+        // this lane's slots of its warp's ring: [kRing][4][32 lanes] float4
+        float4* ring = smem4 + (2 * RT * lda) / 4 + warp * (kRing * 4 * 32) + lane;
+        stage_tile<MT>(a_hi, a_lo, lda, acc, warp, lane);
+        __syncthreads();
+        tile_product<MT, kRing>(acc, a_hi, a_lo, lda,
+                                reinterpret_cast<const float4*>(wsrc + l * w_layer), ring, h,
+                                warp, lane);
+      }
       __syncthreads();  // every warp is done reading this layer's carry
       activate<R, T>(acc, bh + static_cast<int64_t>(l) * h, ww, warp, lane);
     }
@@ -129,15 +255,15 @@ fwd_kernel(const float* __restrict__ x, int n, int n_tiles, const float* __restr
   }
 }
 
-// The two kernels on `stream`; -> cudaGetLastError() (0 = ok).  x (n, 3);
-// w1 (3, h); b1 (h); wh (n_mm, h, h); bh (n_mm, h); wl (h); bl (1); grid
-// tile CTAs (at most the tiles); frag n_mm h^2 floats of workspace, as
-// ops/kernel_io.py::FwdPlan sizes it; out (n, out_stride).
-template <int R, int T>
+// The kernels on `stream`; -> cudaGetLastError() (0 = ok).  x (n, 3); w1
+// (3, h); b1 (h); wh (n_mm, h, h); bh (n_mm, h); wl (h); bl (1); grid tile
+// CTAs (at most the tiles); frag n_mm h^2 floats of workspace for
+// Product::kTf32x3 (unused by kFp32), as ops/kernel_io.py::FwdPlan sizes
+// it; out (n, out_stride).
+template <int R, int T, Product P>
 int launch(const float* x, int n, const float* w1, const float* b1, const float* wh,
            const float* bh, int n_mm, const float* wl, const float* bl, float w0, float ww,
            int h, int grid, float* frag, float* out, int out_stride, cudaStream_t stream) {
-  using L = Tile<R, T>;
   if (h % 32 != 0 || h > kMaxH || h <= 0 || n < 0 || n_mm < 0 || out_stride < R) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -145,16 +271,17 @@ int launch(const float* x, int n, const float* w1, const float* b1, const float*
   if (n_tiles == 0) return 0;
   if (grid <= 0 || grid > n_tiles) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err;
-  if (n_mm > 0) {
+  if (P == Product::kTf32x3 && n_mm > 0) {
     frag_kernel<<<264, 256, 0, stream>>>(wh, n_mm, 1, h, reinterpret_cast<float4*>(frag));
     if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
   }
-  const int smem = L::smem_bytes(h);
-  err = cudaFuncSetAttribute(fwd_kernel<R, T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const int smem = smem_bytes<R, T, P>(h);
+  err = cudaFuncSetAttribute(fwd_kernel<R, T, P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  fwd_kernel<R, T><<<grid, h, smem, stream>>>(x, n, n_tiles, w1, b1,
-                                              reinterpret_cast<const float4*>(frag), bh, n_mm,
-                                              wl, bl, w0, ww, h, out, out_stride);
+  fwd_kernel<R, T, P><<<grid, h, smem, stream>>>(x, n, n_tiles, w1, b1,
+                                                 P == Product::kFp32 ? wh : frag, bh, n_mm, wl,
+                                                 bl, w0, ww, h, out, out_stride);
   return static_cast<int>(cudaGetLastError());
 }
 

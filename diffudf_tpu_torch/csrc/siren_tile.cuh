@@ -1,6 +1,6 @@
-// Building blocks of the SIREN kernels on Hopper's tensor cores: the
-// forward kernels K1 and K3a (siren_fwd.cuh) and the backward kernels K2 and
-// K3b (siren_bwd.cuh) of a uniform-width sine SIREN.  A point's carry is R
+// Building blocks of the SIREN kernels on Hopper: the forward kernels K1
+// and K3a (siren_fwd.cuh) and the backward kernels K2 and K3b
+// (siren_bwd.cuh) of a uniform-width sine SIREN.  A point's carry is R
 // rows of width h, [a; J0; J1; J2] and for R = 10 the packed Hessian
 // [H0..H5] (xx, xy, xz, yy, yz, zz), and every hidden layer maps a tile of
 // T points' R*T rows through one (R*T, h) x (h, h) product followed by
@@ -18,7 +18,8 @@
 //  - frag_kernel lays W (and, for the backward, W^T) of every hidden layer
 //    out in the order of mma.sync's B fragments, once per launch.
 //  - stage_tile writes the carry to shared memory split into TF32 hi and lo
-//    parts; tile_product multiplies it by W as mma.sync.m16n8k8 TF32
+//    parts; tile_product (every kernel but K1, whose FP32 FMA product is in
+//    siren_fwd.cuh) multiplies it by W as mma.sync.m16n8k8 TF32
 //    products, lo*hi + hi*lo + hi*hi (3xTF32: float32 accuracy on the tensor
 //    cores), B fragments by cp.async from L2, each two-k-step partial added
 //    into float32 registers (the tensor cores' own float32 sum truncates).
@@ -263,7 +264,9 @@ __device__ __forceinline__ void stage_tile(float* a_hi, float* a_lo, int lda, co
 
 // acc = the first layer's carry of a tile's T points, whose x are xs (3 T
 // floats): z = x W1 + b1, then a = sin(w0 z), its Jacobian and, for R = 10,
-// its packed Hessian.
+// its packed Hessian.  z rounds as the plain versions' x @ W1 + b1: one FMA
+// chain over x's coordinates in order, then the bias (sin(w0 z) amplifies
+// z's rounding by w0).
 template <int R, int T>
 __device__ __forceinline__ void first_layer(float* acc, const float* xs,
                                             const float* __restrict__ w1,
@@ -281,7 +284,7 @@ __device__ __forceinline__ void first_layer(float* acc, const float* xs,
 #pragma unroll
       for (int th = 0; th < L::TH; ++th) {
         const int t = g + 8 * th;
-        const float z = xs[3 * t] * wa + xs[3 * t + 1] * wb + xs[3 * t + 2] * wc + bj;
+        const float z = fmaf(xs[3 * t + 2], wc, fmaf(xs[3 * t + 1], wb, xs[3 * t] * wa)) + bj;
         float s, c;
         fast_sincos(w0 * z, &s, &c);
         const float d1 = w0 * c;

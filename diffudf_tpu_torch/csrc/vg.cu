@@ -8,8 +8,9 @@
 // _vg_bwd): the gradient of sum(cot * (f | g | 0)) with respect to every W
 // and b, written flat in the ravel_pytree layout (per layer b then w).
 //
-// Design.  K3a is dudf::fwd::launch<4, 16> of siren_fwd.cuh, K1's design
-// (csrc/vgh.cu) at four rows a point: a persistent grid walks tiles of
+// Design.  K3a is dudf::fwd::launch<4, 16, Product::kTf32x3> of
+// siren_fwd.cuh, K1's tile design (csrc/vgh.cu) at four rows a point with
+// tensor-core products: a persistent grid walks tiles of
 // T = 16 points (64 carry rows), whose products run on the tensor cores in
 // 3xTF32 (float32 accuracy) with W's fragments from L2.  K3b is
 // dudf::bwd::launch<4, 16> of siren_bwd.cuh: the same tiles through the
@@ -53,8 +54,9 @@ int vg_launch(const float* x, int n, const float* w1, const float* b1,
               const float* wh, const float* bh, int n_mm,
               const float* wl, const float* bl, float w0, float ww, int h,
               int grid, float* frag, float* out, void* stream) {
-  return dudf::fwd::launch<kR, kT>(x, n, w1, b1, wh, bh, n_mm, wl, bl, w0, ww, h, grid, frag,
-                                   out, 8, static_cast<cudaStream_t>(stream));
+  return dudf::fwd::launch<kR, kT, dudf::fwd::Product::kTf32x3>(
+      x, n, w1, b1, wh, bh, n_mm, wl, bl, w0, ww, h, grid, frag, out, 8,
+      static_cast<cudaStream_t>(stream));
 }
 
 // K3b on `stream`: the gradient of sum(cot[:, :4] * (f | g)), flat, into

@@ -12,14 +12,15 @@
 //
 // Output row n is (f | g | h6 | 6 zeros), 16 floats, as the Pallas kernel's.
 //
-// Design.  dudf::fwd::launch<10, 8> of siren_fwd.cuh: a persistent grid
-// walks tiles of T = 8 points (80 carry rows), whose products run on the
-// tensor cores in 3xTF32 (float32 accuracy) with W's fragments from L2.
+// Design.  dudf::fwd::launch<10, 8, Product::kFp32> of siren_fwd.cuh: a
+// persistent grid walks tiles of T = 8 points (80 carry rows); each thread
+// holds 10 rows by 8 columns of the product and sums every element in FP32
+// FMA over k in turn, the order of the plain version's float32 product,
+// with W's rows from L2 through a shared ring.
 //
 // Bound.  About 9.18 MFLOP a point at 8x256 (7 hidden layers x 10 rows x
 // 2*256^2, plus the first layer and the head) against 76 bytes of input and
-// output: as three TF32 products on the tensor cores, 3 * flop / 495e12 s
-// (0.556 ms at 9,990 points; FP32 FMA at 67e12 would be 1.369 ms).
+// output: FP32 FMA at 67e12 flop/s, 1.369 ms at 9,990 points.
 //
 // Built by ops/vgh.py with nvcc -gencode arch=compute_90a,code=sm_90a -O3
 // into a shared library with a plain C interface, loaded with ctypes.
@@ -41,15 +42,16 @@ int vgh_tile() { return kT; }
 
 // Launches K1 on `stream` and returns cudaGetLastError() (0 = ok).
 // x (n, 3); w1 (3, h); b1 (h); wh (n_mm, h, h); bh (n_mm, h); wl (h);
-// bl (1); grid tile CTAs; frag n_mm h^2 floats of workspace; out (n, 16);
-// all float32, contiguous, on the same device, as ops/kernel_io.py::FwdPlan
-// sizes them.  h must be a multiple of 32 and at most vgh_max_width().
+// bl (1); grid tile CTAs; frag unused (FwdPlan sizes no workspace for K1);
+// out (n, 16); all float32, contiguous, on the same device.  h must be a
+// multiple of 32 and at most vgh_max_width().
 int vgh_launch(const float* x, int n, const float* w1, const float* b1,
                const float* wh, const float* bh, int n_mm,
                const float* wl, const float* bl, float w0, float ww, int h,
                int grid, float* frag, float* out, void* stream) {
-  return dudf::fwd::launch<kR, kT>(x, n, w1, b1, wh, bh, n_mm, wl, bl, w0, ww, h, grid, frag,
-                                   out, 16, static_cast<cudaStream_t>(stream));
+  return dudf::fwd::launch<kR, kT, dudf::fwd::Product::kFp32>(
+      x, n, w1, b1, wh, bh, n_mm, wl, bl, w0, ww, h, grid, frag, out, 16,
+      static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

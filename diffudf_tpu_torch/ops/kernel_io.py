@@ -4,8 +4,9 @@ the layout the kernels read, and the launches of the forward kernels K1 and
 K3a (``csrc/siren_fwd.cuh``) and the backward kernels K2 and K3b
 (``csrc/siren_bwd.cuh``) with the plans of their grids, workspaces and
 device-memory bytes (:class:`FwdPlan`, :class:`BwdPlan`).  Also the TF32
-split all four multiply with (:func:`tf32_split`, :func:`matmul_3xtf32`),
-in torch, so that its accuracy can be rehearsed on the CPU.
+split that K2, K3a and K3b multiply with (:func:`tf32_split`,
+:func:`matmul_3xtf32`), in torch, so that its accuracy can be rehearsed on
+the CPU.
 
 Nothing here builds or launches at import time.
 """
@@ -46,12 +47,17 @@ WBAR_BLOCK = 128
 WBAR_CHUNK = 32
 
 
-def nvcc_command() -> list:
-    """nvcc for Hopper into a shared library, with the ptxas report."""
+def nvcc_command(main: str = "") -> list:
+    """nvcc for Hopper into a shared library, with the ptxas report, for the
+    source ``main``.  K1 (``vgh.cu``) is built without FMA contraction: its
+    elementwise arithmetic then rounds op by op as its plain torch version's
+    does, which its element gate on fitted nets needs
+    (``scripts/fwd_gate_check.py``)."""
     cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
     nvcc = shutil.which("nvcc") or os.path.join(cuda_home, "bin", "nvcc")
     return [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-            "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-I", CSRC]
+            "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-I", CSRC] + (
+                ["-fmad=false"] if main == "vgh.cu" else [])
 
 
 def sources(*names) -> list:
@@ -128,13 +134,14 @@ def weights(params, device):
 @dataclass(frozen=True)
 class FwdPlan:
     """Grid, workspace and device-memory bytes of one launch of the forward
-    kernel (K1: ``tile`` 8 points, ``cols`` 16 output columns; K3a: 16 and
-    8) for ``n`` points of a net of width ``h`` with ``n_mm`` hidden
-    products, on a card with ``sms`` SMs.  Sizes are in floats; see
-    ``csrc/siren_fwd.cuh``."""
+    kernel (K1: ``tile`` 8 points, ``cols`` 16 output columns, FP32 FMA
+    products; K3a: 16 and 8, 3xTF32 products, ``tf32``) for ``n`` points of
+    a net of width ``h`` with ``n_mm`` hidden products, on a card with
+    ``sms`` SMs.  Sizes are in floats; see ``csrc/siren_fwd.cuh``."""
 
     tile: int
     cols: int
+    tf32: bool
     h: int
     n_mm: int
     n: int
@@ -152,30 +159,31 @@ class FwdPlan:
 
     @property
     def frag(self) -> int:
-        """Floats of the fragment workspace: W of every hidden layer."""
-        return self.n_mm * self.h * self.h
+        """Floats of the fragment workspace: W of every hidden layer for the
+        tensor-core products; none for FP32 FMA, which reads W itself."""
+        return self.n_mm * self.h * self.h if self.tf32 else 0
 
     @property
     def bytes_moved(self) -> int:
         """Device-memory bytes a launch moves by the design: x read once,
         the ``cols`` output columns written once, the weights read once and
-        their fragments written once and read once (the tiles re-read them
-        from L2)."""
+        their fragments written once and read once (the tiles re-read W or
+        its fragments from L2)."""
         weights = 4 * self.h + self.n_mm * (self.h * self.h + self.h) + self.h + 1
         return 4 * (self.n * (3 + self.cols) + weights + 2 * self.frag)
 
 
-def forward_plan(spec: SirenSpec, n: int, tile: int, cols: int, sms: int) -> FwdPlan:
-    return FwdPlan(tile=tile, cols=cols, h=spec.hidden[0], n_mm=len(spec.hidden) - 1, n=n,
-                   sms=sms)
+def forward_plan(spec: SirenSpec, n: int, tile: int, cols: int, tf32: bool, sms: int) -> FwdPlan:
+    return FwdPlan(tile=tile, cols=cols, tf32=tf32, h=spec.hidden[0], n_mm=len(spec.hidden) - 1,
+                   n=n, sms=sms)
 
 
-def launch_forward(fn, tile: int, params, spec, x, out):
+def launch_forward(fn, tile: int, tf32: bool, params, spec, x, out):
     """Call a forward launcher (K1 or K3a) on the current stream into
     ``out`` (N, cols); raise on a CUDA error.  The fragment workspace
     follows :func:`forward_plan`."""
     dev = x.device
-    plan = forward_plan(spec, x.shape[0], tile, out.shape[1],
+    plan = forward_plan(spec, x.shape[0], tile, out.shape[1], tf32,
                         torch.cuda.get_device_properties(dev).multi_processor_count)
     if plan.n_tiles == 0:
         return

@@ -2,7 +2,7 @@
 VJP K3b, and the autograd op that pairs them.
 
 Both kernels are in ``csrc/vg.cu``: K3a (on ``csrc/siren_fwd.cuh``, the
-forward design of K1) replaces ``diffudf_tpu/ops/pallas_vg.py::
+forward tile design of K1 with 3xTF32 tensor-core products) replaces ``diffudf_tpu/ops/pallas_vg.py::
 _vg_fwd_kernel`` and K3b (on ``csrc/siren_bwd.cuh``, the backward design of
 K2) ``_vg_bwd_kernel``.  :func:`vg` and
 :func:`vg_bwd` are their wrappers: on a CUDA tensor they launch the kernel
@@ -149,7 +149,7 @@ def vg(params, spec: SirenSpec, x: torch.Tensor):
     kio.check_width(spec, "vg")
     out = torch.empty((x.shape[0], 8), device=x.device, dtype=torch.float32)
     if x.shape[0]:
-        kio.launch_forward(lib.vg_launch, lib.vg_tile(), params, spec, x, out)
+        kio.launch_forward(lib.vg_launch, lib.vg_tile(), True, params, spec, x, out)
         launches += 1
     return out[:, 0], out[:, 1:4]
 

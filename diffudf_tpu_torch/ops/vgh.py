@@ -2,10 +2,10 @@
 hand-derived VJP K2, and the autograd op that pairs them.
 
 K1 (``csrc/vgh.cu`` on ``csrc/siren_fwd.cuh``: a persistent tile kernel
-with 3xTF32 tensor-core products) replaces
+whose products sum in FP32 FMA in the plain version's order) replaces
 ``diffudf_tpu/ops/pallas_vgh.py::_vgh_kernel``; K2 (``csrc/vgh_bwd.cu`` on
-``csrc/siren_bwd.cuh``: the same products, W-bar as a split-K product of
-each layer's carries and m-bars) replaces
+``csrc/siren_bwd.cuh``: 3xTF32 tensor-core products, W-bar as a split-K
+product of each layer's carries and m-bars) replaces
 ``diffudf_tpu/ops/pallas_vgh_vjp.py::_vgh_bwd_kernel``.  :func:`vgh` and
 :func:`vgh_bwd` are their wrappers: on a CUDA tensor they launch the kernel
 (and raise on any input the kernel does not take); on a CPU tensor they run
@@ -44,7 +44,7 @@ bwd_launches = 0
 
 def build() -> str:
     """Build K1's library if needed; -> its path."""
-    return build_shared("vgh", kio.nvcc_command(), _SOURCES)
+    return build_shared("vgh", kio.nvcc_command("vgh.cu"), _SOURCES)
 
 
 def build_bwd() -> str:
@@ -213,7 +213,7 @@ def vgh(params, spec: SirenSpec, x: torch.Tensor):
     kio.check_width(spec, "vgh")
     out = torch.empty((x.shape[0], 16), device=x.device, dtype=torch.float32)
     if x.shape[0]:
-        kio.launch_forward(lib.vgh_launch, lib.vgh_tile(), params, spec, x, out)
+        kio.launch_forward(lib.vgh_launch, lib.vgh_tile(), False, params, spec, x, out)
         launches += 1
     return out[:, 0], out[:, 1:4], out[:, 4:10]
 

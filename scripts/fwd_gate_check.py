@@ -22,17 +22,25 @@ limit, the worst of its distance from float64 over the same limit taken
 at the float64 value, the largest and RMS distance from float64, and for
 the worst element its |plain|, limit and the distances of the kernel and
 the plain version from float64.  ``--variants`` also builds K1 from
-patched copies of this tree's sources, two more accurate products:
+patched copies of this tree's sources:
 
-  promote1  each k-step's tensor-core sum added into float32 registers
-            (not each two k-steps');
-  lolo      the fourth TF32 product lo*lo added to the three of 3xTF32.
+  contracted    built with nvcc's FMA contraction, as K2-K5 are;
+  first_sum     built without it, the first layer's z written as
+                x0 w0 + x1 w1 + x2 w2 + b (as before this design);
+  both          both: the first build of this design;
+  tf32x3        on the tensor-core product of K3a, 3xTF32 mma.sync
+                promoted into float32 every two k-steps, built as "both"
+                (the design that phase 6 refused);
+  promote1      the same, each k-step's tensor-core sum added into float32
+                registers;
+  lolo          the same, the fourth TF32 product lo*lo added to the three.
 
 Last, it times each K1 built here against this tree's, in turns (this,
 other, other, this: medians of 20 CUDA-event-timed launches each).
 """
 
 import argparse
+import concurrent.futures
 import os
 import sys
 import tempfile
@@ -67,20 +75,30 @@ PROMOTE = """        mma3x4(tmp, ah, al, bh[ks], bl[ks], ks == 0);
 LO_HI = """#pragma unroll
   for (int u = 0; u < 4; ++u) mma_tf32(d[u], al, bh[u][0], bh[u][1], first);
 """
-VARIANTS = {
-    "promote1": ((PROMOTE, """        mma3x4(tmp, ah, al, bh[ks], bl[ks], true);
+K1_TF32X3 = ("Product::kFp32>(", "Product::kTf32x3>(")
+FIRST_SUM = ("fmaf(xs[3 * t + 2], wc, fmaf(xs[3 * t + 1], wb, xs[3 * t] * wa)) + bj",
+             "xs[3 * t] * wa + xs[3 * t + 1] * wb + xs[3 * t + 2] * wc + bj")
+PROMOTE1 = (PROMOTE, """        mma3x4(tmp, ah, al, bh[ks], bl[ks], true);
 #pragma unroll
         for (int u = 0; u < 4; ++u) {
 #pragma unroll
           for (int c = 0; c < 4; ++c) acc[(mt * 4 + u) * 4 + c] += tmp[u][c];
         }
       }
-"""),),
-    "lolo": ((LO_HI, """#pragma unroll
+""")
+LOLO = (LO_HI, """#pragma unroll
   for (int u = 0; u < 4; ++u) mma_tf32(d[u], al, bl[u][0], bl[u][1], first);
 #pragma unroll
   for (int u = 0; u < 4; ++u) mma_tf32(d[u], al, bh[u][0], bh[u][1], false);
-"""),),
+""")
+# name: (patches, built with FMA contraction, tensor-core product)
+VARIANTS = {
+    "contracted": ((), True, False),
+    "first_sum": ((FIRST_SUM,), False, False),
+    "both": ((FIRST_SUM,), True, False),
+    "tf32x3": ((K1_TF32X3, FIRST_SUM), True, True),
+    "promote1": ((K1_TF32X3, FIRST_SUM, PROMOTE1), True, True),
+    "lolo": ((K1_TF32X3, FIRST_SUM, LOLO), True, True),
 }
 
 
@@ -115,13 +133,18 @@ def main():
     exact = chunked(lambda c: as_rows(vgh.vgh_reference(p64, spec, c.double())), x)
     runs = {"kernel": as_rows(vgh.vgh(params, spec, x))[:, :10]}
     builds = {}
-    if args.parent:
-        lib, _ = build("gate_parent", os.path.join(args.parent, "diffudf_tpu_torch", "csrc"),
-                       "vgh.cu")
-        builds["parent"] = old_forward(lib.vgh_launch, 16)
-    for name, patches in (VARIANTS.items() if args.variants else ()):
-        lib, _ = build(f"gate_{name}", kio.CSRC, "vgh.cu", patches)
-        builds[name] = new_forward(lib.vgh_launch, 8, 16)
+    with concurrent.futures.ThreadPoolExecutor(8) as pool:  # one nvcc a copy
+        if args.parent:
+            parent = pool.submit(build, "gate_parent",
+                                 os.path.join(args.parent, "diffudf_tpu_torch", "csrc"), "vgh.cu",
+                                 cmd=kio.nvcc_command())
+        variants = {name: (pool.submit(build, f"gate_{name}", kio.CSRC, "vgh.cu", patches,
+                                       kio.nvcc_command() if contract else None), tf32)
+                    for name, (patches, contract, tf32) in VARIANTS.items() if args.variants}
+        if args.parent:
+            builds["parent"] = old_forward(parent.result()[0].vgh_launch, 16)
+        for name, (lib, tf32) in variants.items():
+            builds[name] = new_forward(lib.result()[0].vgh_launch, 8, 16, tf32)
     for name, fn in builds.items():
         runs[name] = fn(params, spec, x)[:, :10]
     runs["ideal"] = chunked(

@@ -20,10 +20,12 @@ parent: medians of 20 each), K1 and K3a at the shapes above and K2 and K3b
 at the training shapes, and the K2 and K3b gradients of the two trees are
 compared bit for bit.
 
-``--ablate``: K1 built from patched copies of the sources: "no products"
-(tile_product skips its k loop: what the elementwise layers, the staging,
-the head and the barriers cost) and "no promotion" (the tensor cores'
-float32 sums carry the whole of K).  Only the second gives a right result.
+``--ablate``: K1 and K3a built from patched copies of the sources: "no
+products" (K1's fma_product and K3a's tile_product skip their k loops: what
+the elementwise layers, the staging, the head and the barriers cost), K3a
+"no promotion" (the tensor cores' float32 sums carry the whole of K) and K1
+"3xTF32" (K1 on K3a's tensor-core product, the design that phase 6's h6
+element gate refused).  The "no products" copies give no right result.
 
 Copies are built into the port's ignored build directory.
 """
@@ -64,11 +66,16 @@ NO_PROMOTION = (
     ("acc[(mt * 4 + u) * 4 + c] += tmp[u][c];", "acc[(mt * 4 + u) * 4 + c] = tmp[u][c];"),
 )
 NO_PRODUCTS = (("  for (int p = 0; p < kp; ++p) {\n", "  for (int p = 0; p < 0 * kp; ++p) {\n"),)
+# fma_product's chunk loop, and K1's product
+FMA_NO_PRODUCTS = (("  for (int c = 0; c < n_chunks; ++c) {\n",
+                    "  for (int c = 0; c < 0 * n_chunks; ++c) {\n"),)
+K1_TF32X3 = (("Product::kFp32>(", "Product::kTf32x3>("),)
 
 
-def build(tag, csrc, main, patches=()):
+def build(tag, csrc, main, patches=(), cmd=None):
     """The library of ``csrc/main`` built from copies of every source in
-    ``csrc``, each patch applied where its text is; -> the CDLL."""
+    ``csrc``, each patch applied where its text is, by ``cmd`` (by default
+    this tree's command for ``main``); -> (the CDLL, its path)."""
     src_dir = os.path.join(BUILD_DIR, "check", tag)
     shutil.rmtree(src_dir, ignore_errors=True)
     shutil.copytree(csrc, src_dir)
@@ -84,7 +91,7 @@ def build(tag, csrc, main, patches=()):
                     fh.write(text.replace(old, new))
         if not hits:
             raise RuntimeError(f"{tag}: no source holds {old[:60]!r}")
-    cmd = kio.nvcc_command()
+    cmd = list(cmd or kio.nvcc_command(main))
     cmd[cmd.index(kio.CSRC)] = src_dir
     out = os.path.join(src_dir, main.replace(".cu", ".so"))
     proc = subprocess.run(cmd + ["-o", out, os.path.join(src_dir, main)], capture_output=True,
@@ -96,12 +103,12 @@ def build(tag, csrc, main, patches=()):
     return ctypes.CDLL(out), out
 
 
-def new_forward(fn, tile, cols):
+def new_forward(fn, tile, cols, tf32):
     fn.argtypes, fn.restype = kio.FWD_ARGTYPES, ctypes.c_int
 
     def run(params, spec, x):
         out = torch.empty((x.shape[0], cols), device=x.device, dtype=torch.float32)
-        kio.launch_forward(fn, tile, params, spec, x, out)
+        kio.launch_forward(fn, tile, tf32, params, spec, x, out)
         return out
     return run
 
@@ -161,8 +168,8 @@ def main():
     for name, lib in (("K1", vgh.build()), ("K3a", vg.build())):
         print(f"{name} build:")
         ptxas_report(lib)
-    kernels = {"K1": new_forward(vgh._lib().vgh_launch, vgh._lib().vgh_tile(), 16),
-               "K3a": new_forward(vg._lib().vg_launch, vg._lib().vg_tile(), 8)}
+    kernels = {"K1": new_forward(vgh._lib().vgh_launch, vgh._lib().vgh_tile(), 16, False),
+               "K3a": new_forward(vg._lib().vg_launch, vg._lib().vg_tile(), 8, True)}
     xs = {}
     for name, n in (("K1", 9990), ("K1", 262144), ("K1", 711714), ("K3a", 19980)):
         x = xs[name, n] = torch.as_tensor(rng.uniform(-1, 1, (n, 3)), dtype=torch.float32,
@@ -183,20 +190,32 @@ def main():
               + ", ".join(f"{k} {v:.1f}" for k, v in kernel_times(launch).items()), flush=True)
 
     if args.ablate:
-        for tag, patches in (("no products", NO_PRODUCTS), ("no promotion", NO_PROMOTION)):
-            lib, _ = build(tag.replace(" ", "_"), kio.CSRC, "vgh.cu", patches)
-            run = new_forward(lib.vgh_launch, 8, 16)
-            x = xs["K1", 9990]
+        for name, tag, patches, tf32 in (("K1", "no products", FMA_NO_PRODUCTS, False),
+                                         ("K1", "3xTF32", K1_TF32X3, True),
+                                         ("K3a", "no products", NO_PRODUCTS, True),
+                                         ("K3a", "no promotion", NO_PROMOTION, True)):
+            main_src, c = ("vgh.cu", 16) if name == "K1" else ("vg.cu", 8)
+            # K1 on 3xTF32 as the first round of this design built it: with
+            # FMA contraction
+            cmd = kio.nvcc_command() if tag == "3xTF32" else None
+            lib, path = build(f"{name}_{tag.replace(' ', '_')}", kio.CSRC, main_src, patches, cmd)
+            if tag == "3xTF32":
+                print("K1 3xTF32 build:")
+                ptxas_report(path)
+            fn = lib.vgh_launch if name == "K1" else lib.vg_launch
+            run = new_forward(fn, 8 if name == "K1" else 16, c, tf32)
+            n = 9990 if name == "K1" else 19980
+            x = xs[name, n]
             got = run(params, spec, x)
-            want = plain_outputs(vgh.vgh_reference, params, spec, x)
-            exact = plain_outputs(vgh.vgh_reference, p64, spec, x.double())
-            print(f"K1 {tag} at {len(x)} points: {cuda_ms(lambda: run(params, spec, x), 20):.3f} "
+            want = plain_outputs(plain[name], params, spec, x)
+            exact = plain_outputs(plain[name], p64, spec, x.double())
+            print(f"{name} {tag} at {n} points: {cuda_ms(lambda: run(params, spec, x), 20):.3f} "
                   f"ms (median of 20)")
-            witness(f"K1 {tag}", got, want, exact, cols["K1"])
+            witness(f"{name} {tag}", got, want, exact, cols[name])
 
     if args.parent:
         csrc = os.path.join(args.parent, "diffudf_tpu_torch", "csrc")
-        old_vgh, path = build("parent_vgh", csrc, "vgh.cu")
+        old_vgh, path = build("parent_vgh", csrc, "vgh.cu", cmd=kio.nvcc_command())
         print("parent K1 build:")
         ptxas_report(path)
         old_vg, _ = build("parent_vg", csrc, "vg.cu")

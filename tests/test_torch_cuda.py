@@ -94,10 +94,10 @@ def test_vg_kernel_matches_plain_version(hidden, n):
         assert float((a - b).abs().max()) <= TOL[k], k
 
 
-# The forward kernels K1 and K3a (csrc/siren_fwd.cuh, 3xTF32 products) at
-# every width class the tiling treats apart: each output element within
-# TOL + RTOL * |plain| of the plain version, the element gate of
-# chip_smoke.py's phase 8.
+# The forward kernels K1 and K3a (csrc/siren_fwd.cuh: K1's products in FP32
+# FMA, K3a's in 3xTF32) at every width class the tiling treats apart: each
+# output element within TOL + RTOL * |plain| of the plain version, the
+# element gate of chip_smoke.py's phase 8.
 FWD = {"vgh": (tv, tv.vgh, tv.vgh_reference, ("f", "g", "h6")),
        "vg": (tg, tg.vg, tg.vg_reference, ("f", "g"))}
 
