@@ -61,7 +61,8 @@ Phases, in order, each printing its seconds:
   9. render   — ``diffudf_tpu_torch.cli.generate_st.main`` in process on
                 configs/st_cfg.json's rendering config (720x720, 3 passes,
                 the mixed bf16 march) with the trained torus; gates: K4
-                launched once per march iteration, K1 once per pass, every
+                launched once per march iteration (prints each pass's
+                launches by bucket), K1 once per pass, every
                 pass with hits on 1-99% of its valid rays, finite colours, a
                 PNG file; then a one-pass float32 march (hit pixels against
                 the bf16 march's first pass) and a one-pass gaussian-
@@ -70,7 +71,12 @@ Phases, in order, each printing its seconds:
  10. render kernel — K4 against its plain version in both modes, element
                 by element, and in float32 against the plain version in
                 float64, on pass 1's entry points at the first round's
-                bucket shape; then their times and bounds;
+                bucket shape; then, on the weights laid out once as the
+                march lays them out, K4's times in both modes at every
+                bucket of the march (65,536 down to 1,024 points) beside
+                each bound, tile, grid and bytes, the plain versions' at
+                the first bucket, and K4's estimated share of pass 1's
+                march: its launches at each bucket times that bucket's time;
  11. figures  — ``diffudf_tpu_torch.cli.generate_df.main`` at width 512 on
                 the trained torus against its point cloud (one K1 and one
                 K5 launch) and against its normalised mesh ``torus_t.obj``
@@ -83,8 +89,9 @@ Phases, in order, each printing its seconds:
                 prints the max and RMS errors, the error K5's own expanded
                 form would have had, and the median of 20 CUDA-event times
                 of K5, its plain version and chunked ``torch.cdist`` +
-                ``amin`` beside the bound; then K1 at the figure's 262,144
-                points beside its bounds.
+                ``amin`` beside the bound and K5's issue floor (four issue
+                slots a pair); then K1 at the figure's 262,144 points beside
+                its bounds.
 
 Then a ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}`` line.
 Any failed phase raises, and the script exits non-zero without those two
@@ -285,6 +292,10 @@ def device_phase():
             print(f"[device] optional package {name}: missing ({exc})")
 
 
+# siren_fwd.cuh's Product, in the order of its enum
+PRODUCTS = ("kFp32", "kTf32x3", "kBf16")
+
+
 @phase("build")
 def build_phase():
     """Every native library at once: one compiler process per source."""
@@ -307,10 +318,13 @@ def build_phase():
         if "nvcc" in name:
             with open(lib[:-3] + ".log") as fh:
                 for line in fh:
-                    entry = re.search(r"entry function '.*?\d([a-z_]+_kernel)(ILi(\d+)ELi(\d+)E)?", line)
+                    entry = re.search(r"entry function '.*?\d([a-z_]+_kernel)"
+                                      r"(ILi(\d+)ELi(\d+)E(LN\w*?ProductE(\d))?)?", line)
                     if entry:
-                        args = f"<{entry.group(3)}, {entry.group(4)}>" if entry.group(2) else ""
-                        print(f"[build]   ptxas: {entry.group(1)}{args}")
+                        args = f"<{entry.group(3)}, {entry.group(4)}" if entry.group(2) else ""
+                        if entry.group(6):
+                            args += f", {PRODUCTS[int(entry.group(6))]}"
+                        print(f"[build]   ptxas: {entry.group(1)}{args}{'>' if args else ''}")
                     elif "registers" in line or "spill" in line:
                         print(f"[build]   ptxas: {line.strip()}")
 
@@ -809,6 +823,7 @@ def render_phase(tmp):
 
     vgh.launches = vgh.bwd_launches = vg.launches = vg.bwd_launches = 0
     value.launches = value.points = 0
+    value.launches_at.clear()
     img, stats = generate_st.main([cfg_path])
     launches = {"K1": vgh.launches, "K2": vgh.bwd_launches, "K3a": vg.launches,
                 "K3b": vg.bwd_launches, "K4": value.launches}
@@ -820,8 +835,9 @@ def render_phase(tmp):
     for i, p in enumerate(passes):
         print(f"[render] pass {i + 1}: march {p['march_s']:.3f} s, {p['iterations']} iterations, "
               f"{p['hits']} hits of {p['valid']} valid rays ({p['hits'] / p['valid']:.1%}), "
-              f"K4 {p['k4_launches']} launches on {p['k4_points']} points; hit attributes "
-              f"{p['attributes_s']:.3f} s, shading {p['shading_s']:.3f} s", flush=True)
+              f"K4 {p['k4_launches']} launches on {p['k4_points']} points (by bucket "
+              f"{p['k4_at']}); hit attributes {p['attributes_s']:.3f} s, shading "
+              f"{p['shading_s']:.3f} s", flush=True)
     print(f"[render] {rc['width']}x{rc['height']}, {len(passes)} passes: {stats['render_s']:.3f} s, "
           f"{mrays:.3f} Mrays/s (the original DiffUDF tracer: {BASELINE_MRAYS_PER_S} Mrays/s); "
           f"K4 points {k4_points}; kernel launches in this run: {launches}")
@@ -884,10 +900,13 @@ def value_bound(n_points, hidden, mode):
 
 
 @phase("render kernel")
-def render_kernel_phase(cfg, model_path):
+def render_kernel_phase(cfg, model_path, pass1):
     """K4 against value_reference in both modes on pass 1's entry points,
-    padded and compacted as the tracer's first round gives them to K4."""
+    padded and compacted as the tracer's first round gives them to K4; then
+    K4's times at every bucket of the march and its share of pass 1's march
+    (``pass1``: phase 9's record of that pass)."""
     from diffudf_tpu_torch.fields.siren import SirenSpec
+    from diffudf_tpu_torch.ops import kernel_io as kio
     from diffudf_tpu_torch.ops import value
     from diffudf_tpu_torch.render.camera import camera_rays_device
     from diffudf_tpu_torch.render.tracer import _bucket_for, _padded_rays
@@ -934,14 +953,42 @@ def render_kernel_phase(cfg, model_path):
     if failed:
         raise AssertionError("; ".join(failed))
 
+    # times at every bucket the march visits, on the weights as the march
+    # lays them out once per trace; the plain version at the first bucket
+    visited = {int(b) for b in pass1["k4_at"]}
+    buckets = sorted(visited | {b for b in (1024, 4096, 16384, 65536) if b <= bucket},
+                     reverse=True)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     for mode, dt in modes.items():
-        ms = cuda_ms(lambda: value.value(params, spec, x, compute_dtype=dt), 20)
+        weights = value.prepare(params, spec, compute_dtype=dt)
+        out[mode]["buckets"] = {}
+        for b in buckets:
+            xb = x[:b].contiguous()
+            ms = cuda_ms(lambda: value.value(params, spec, xb, compute_dtype=dt,
+                                             weights=weights), 20)
+            bound, by = value_bound(b, HIDDEN, mode)
+            plan = kio.value_plan(spec, b, mode == "bf16", sms)
+            row = {"ms": ms, "bound_ms": bound, "bound_by": by, "tile": plan.tile,
+                   "grid": plan.grid, "bytes_moved": plan.bytes_moved, "l2_bytes": plan.l2_bytes}
+            out[mode]["buckets"][b] = row
+            print(f"[render-kernel] K4 {mode} at {b} points: {ms:.3f} ms (median of 20), bound "
+                  f"{bound:.3f} ms ({by}), {bound / ms:.1%} of the bound; tile {plan.tile}, "
+                  f"{plan.grid} CTAs, device memory {plan.bytes_moved / 1e6:.3f} MB, W from L2 "
+                  f"{plan.l2_bytes / 1e6:.1f} MB ({plan.l2_bytes / ms / 1e9:.2f} TB/s)")
         plain_ms = cuda_ms(lambda: value.value_reference(params, spec, x, compute_dtype=dt), 20)
-        bound, by = value_bound(bucket, HIDDEN, mode)
-        out[mode].update(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by, points=bucket)
-        print(f"[render-kernel] K4 {mode} at {bucket} points: {ms:.3f} ms (median of 20), plain "
-              f"{plain_ms:.3f} ms (median of 20), bound {bound:.3f} ms ({by}), "
-              f"{bound / ms:.1%} of the bound")
+        first = out[mode]["buckets"][bucket]
+        out[mode].update(ms=first["ms"], plain_ms=plain_ms, bound_ms=first["bound_ms"],
+                         bound_by=first["bound_by"], points=bucket)
+        print(f"[render-kernel] K4 {mode} plain version at {bucket} points: {plain_ms:.3f} ms "
+              f"(median of 20)")
+    # pass 1 marched in the bf16 mode: its launches at each bucket times
+    # that bucket's time, against its march seconds (host clock)
+    est = sum(n * out["bf16"]["buckets"][int(b)]["ms"] for b, n in pass1["k4_at"].items())
+    out["march_share"] = {"k4_ms": est, "march_s": pass1["march_s"],
+                          "share": est / (1e3 * pass1["march_s"]), "launches": pass1["k4_at"]}
+    print(f"[render-kernel] K4 in pass 1's march: {est:.3f} ms estimated (launches by bucket "
+          f"{pass1['k4_at']} x each bucket's time) of its {1e3 * pass1['march_s']:.3f} ms march: "
+          f"{out['march_share']['share']:.1%}")
     return out
 
 
@@ -985,6 +1032,14 @@ def min_distance_bound(n_queries, n_cloud):
     return max(flop_ms, byte_ms), ("operations" if flop_ms >= byte_ms else "bytes")
 
 
+def min_distance_issue_floor(n_queries, n_cloud):
+    """ms of K5's own floor: four issue slots a pair (3 FFMA + 1 FMNMX), a
+    lane's instruction each, at PEAK_FP32_FLOPS / 2 lane instructions a
+    second (one warp instruction a clock on every scheduler, at the clock
+    the FP32 peak implies)."""
+    return 1e3 * 4 * n_queries * n_cloud / (PEAK_FP32_FLOPS / 2)
+
+
 @phase("distance kernel")
 def distance_kernel_phase(data_dir, params):
     """K5 against its plain version and the float64 witness at the figure's
@@ -1026,9 +1081,11 @@ def distance_kernel_phase(data_dir, params):
     cdist_ms = cuda_ms(lambda: torch.cat([torch.cdist(c, cloud).amin(1)
                                           for c in q.split(min_distance.QUERY_TILE)]), 20)
     bound, by = min_distance_bound(nq, m)
+    floor = min_distance_issue_floor(nq, m)
     print(f"[distance-kernel] K5 {ms:.3f} ms (median of 20), plain {plain_ms:.3f} ms (median of "
           f"20), torch.cdist + amin over {min_distance.QUERY_TILE}-query chunks {cdist_ms:.3f} ms "
-          f"(median of 20), bound {bound:.3f} ms ({by}), {bound / ms:.1%} of the bound")
+          f"(median of 20), bound {bound:.3f} ms ({by}), {bound / ms:.1%} of the bound; issue "
+          f"floor (4 slots a pair) {floor:.3f} ms, {floor / ms:.1%} of it")
 
     spec = SirenSpec(hidden=HIDDEN)
     k1_ms = cuda_ms(lambda: vgh.vgh(params, spec, q), 20)
@@ -1038,7 +1095,8 @@ def distance_kernel_phase(data_dir, params):
     return {"max_abs_err": report["K5 - plain"][0], "witness_max_err": report["K5 - float64"][0],
             "expanded_form_max_err": report["expanded form - float64"][0], "ms": ms,
             "plain_ms": plain_ms, "cdist_ms": cdist_ms, "bound_ms": bound, "bound_by": by,
-            "queries": nq, "cloud": m, "k1_figure": {"points": nq, "ms": k1_ms, **k1}}
+            "issue_floor_ms": floor, "queries": nq, "cloud": m,
+            "k1_figure": {"points": nq, "ms": k1_ms, **k1}}
 
 
 KERNELS = {
@@ -1067,7 +1125,7 @@ def main():
         run = train_phase(tmp)
         tk = train_kernel_phase(run["params"], run["cfg_path"])
         render = render_phase(tmp)
-        rk = render_kernel_phase(render["cfg"], render["model_path"])
+        rk = render_kernel_phase(render["cfg"], render["model_path"], render["passes"][0])
         figs = figures_phase(tmp, run["data_dir"])
         dk = distance_kernel_phase(run["data_dir"], run["params"])
     rows = []
@@ -1093,8 +1151,8 @@ def main():
             # mode's numbers come beside them
             row.update(launches=render["launches"]["K4"], mode="bf16",
                        **{k: rk["bf16"][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                                                     "bound_by", "points")},
-                       f32=rk["f32"])
+                                                     "bound_by", "points", "buckets")},
+                       f32=rk["f32"], march_share=rk["march_share"])
         elif key == "K5":
             # no single PyTorch call computes it: torch.cdist + amin (two
             # calls, over query chunks) is timed beside it
@@ -1103,7 +1161,8 @@ def main():
                                          "generate_df": figs["torus_pc.ply"]["launches"]["K5"]},
                        **{k: dk[k] for k in ("max_abs_err", "witness_max_err",
                                              "expanded_form_max_err", "ms", "plain_ms",
-                                             "bound_ms", "bound_by", "queries", "cloud")},
+                                             "bound_ms", "bound_by", "issue_floor_ms", "queries",
+                                             "cloud")},
                        cdist_amin_chunked_ms=dk["cdist_ms"])
         else:
             # phase 8's numbers; bound_ms is the 3xTF32 tensor bound, with

@@ -65,7 +65,8 @@ def create_projectional_image(params, spec: SirenSpec, rays, t0, mask, network_c
     rays, t0 (N, 3) and mask (N,) are tensors (the device camera) or host
     arrays.  With a ``stats`` dict, the pass records there its march
     seconds and iterations, the valid and hit ray counts, the K4 launches
-    and points of its march, its hit-attribute and shading seconds, and
+    and points of its march and its K4 launches by bucket (``k4_at``:
+    points -> launches), its hit-attribute and shading seconds, and
     the count of non-finite colour values.
     """
     dev = params[0]["w"].device
@@ -80,7 +81,7 @@ def create_projectional_image(params, spec: SirenSpec, rays, t0, mask, network_c
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     t_start = time.perf_counter()
-    k4_launches, k4_points = k4.launches, k4.points
+    k4_launches, k4_points, k4_at = k4.launches, k4.points, dict(k4.launches_at)
     positions, hits, iters = trace_rays_compacted(
         params, spec, t0, rays, mask,
         gt_mode=gt_mode, alpha=alpha,
@@ -165,7 +166,10 @@ def create_projectional_image(params, spec: SirenSpec, rays, t0, mask, network_c
         valid = mask.sum() if on_device else np.asarray(mask).sum()
         stats.update(march_s=march_s, iterations=int(iters), valid=int(valid),
                      hits=int(hits_np.sum()), k4_launches=k4.launches - k4_launches,
-                     k4_points=k4.points - k4_points, attributes_s=attributes_s,
+                     k4_points=k4.points - k4_points,
+                     k4_at={n: c - k4_at.get(n, 0) for n, c in sorted(k4.launches_at.items())
+                            if c > k4_at.get(n, 0)},
+                     attributes_s=attributes_s,
                      shading_s=time.perf_counter() - t_shade,
                      nonfinite=int((~np.isfinite(colors)).sum()))
     return colors

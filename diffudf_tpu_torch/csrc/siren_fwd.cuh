@@ -1,11 +1,13 @@
 // The forward kernel of the SIREN kernels for Hopper: K1 (R = 10, f, grad f
-// and the packed Hessian, csrc/vgh.cu) and K3a (R = 4, f and grad f,
-// csrc/vg.cu).  It replaces diffudf_tpu/ops/pallas_vgh.py::_vgh_kernel
-// (R = 10) and diffudf_tpu/ops/pallas_vg.py::_vg_fwd_kernel (R = 4): per
-// point x, the Taylor-mode forward of a uniform-width sine SIREN with the
-// R-row carry of siren_tile.cuh, then the head (h -> 1) of every row.
-// Output row n is (f | g | h6 | 6 zeros), 16 floats, for R = 10 and
-// (f | g | 4 zeros), 8 floats, for R = 4, as the Pallas kernels write them.
+// and the packed Hessian, csrc/vgh.cu), K3a (R = 4, f and grad f,
+// csrc/vg.cu) and K4 (R = 1, f alone, csrc/value.cu).  It replaces
+// diffudf_tpu/ops/pallas_vgh.py::_vgh_kernel (R = 10), diffudf_tpu/ops/
+// pallas_vg.py::_vg_fwd_kernel (R = 4) and diffudf_tpu/ops/pallas_value.py::
+// _value_kernel (R = 1): per point x, the Taylor-mode forward of a
+// uniform-width sine SIREN with the R-row carry of siren_tile.cuh, then the
+// head (h -> 1) of every row.  Output row n is (f | g | h6 | 6 zeros), 16
+// floats, for R = 10, (f | g | 4 zeros), 8 floats, for R = 4 and f for
+// R = 1, as the Pallas kernels write them.
 //
 // What bounds it.  Per point and hidden layer one (R, h) x (h, h) product:
 // 9.18 MFLOP a point for K1 at 8x256 and 3.67 for K3a, against 76 and 44
@@ -36,6 +38,10 @@
 //    backward kernels' tile_kernel.  frag_kernel first lays W of every
 //    hidden layer out in B-fragment order (one orientation), n_mm h^2
 //    floats that stay in L2.
+//  - Product::kBf16 (K4's mixed mode): stage_bf16 and bf16_product, the
+//    carry rounded to bf16 and multiplied by W's bf16 fragments (laid out
+//    once per trace by the wrapper) as mma.sync.m16n8k16 with float32
+//    sums.  K4's float32 mode takes kFp32.
 // Nothing is allocated and nothing goes through device memory but x, the
 // weights, the fragments and the output; no atomics: two launches on the
 // same input give the same bits.
@@ -46,6 +52,7 @@
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -54,7 +61,7 @@
 namespace dudf {
 namespace fwd {
 
-enum class Product { kFp32, kTf32x3 };
+enum class Product { kFp32, kTf32x3, kBf16 };
 
 constexpr int kChunk = 16;   // W rows a slot of fma_product's ring
 constexpr int kStages = 3;   // slots of the ring
@@ -154,10 +161,118 @@ __device__ __forceinline__ void fma_product(float* acc, const float* at,
   cp_async_wait<0>();
 }
 
+// Product::kBf16 (K4's mixed mode): the carry is staged in bf16, rounded
+// to nearest even (row r, column j at a[r * (h + kBfPad) + j]; the padding
+// makes ldmatrix conflict-free), and W of every hidden layer arrives from
+// the wrapper in B-fragment order, laid out once per trace
+// (ops/kernel_io.py::value_fragments): uint4 {b0, b1 of k-step 2p; b0, b1
+// of k-step 2p + 1} at [layer][k-pair p][8-column tile][lane], two bf16 a
+// register.  Each lane streams its warp's fragments from L2 through its
+// own kBfRing slots of shared memory (no barrier: a lane reads only what it
+// fetched), tile after tile, layer after layer, so the ring never drains
+// at a layer's end.
+constexpr int kBfPad = 8;   // bf16 elements of A-row padding
+constexpr int kBfRing = 8;  // k-pairs in flight a lane (one layer at h = 256)
+
+template <int MT>
+struct BfTile {
+  static constexpr int smem_bytes(int h) {
+    return 2 * MT * 16 * (h + kBfPad) + (h / 32) * kBfRing * 4 * 32 * 16;
+  }
+};
+
+// A CTA's stream of W fragments through one lane's ring: the k-pairs of
+// layer 0, 1, ..., n_mm - 1, once for each of the CTA's tiles.
+struct BfStream {
+  const uint4* src;  // the fragments, at this lane's entry of its warp's first column tile
+  uint4* ring;       // this lane's kBfRing slots, 4 column tiles each, 32 lanes apart
+  int nt;            // 8-column tiles a layer
+  int per_tile;      // k-pairs of every hidden layer
+  int steps;         // k-pairs of every tile of the CTA
+  int fetched, used;
+
+  // request the next k-pair into its slot (an empty group past the end)
+  __device__ __forceinline__ void fetch() {
+    if (fetched < steps) {
+      const int s = fetched % per_tile;
+      uint4* dst = ring + (fetched % kBfRing) * 4 * 32;
+#pragma unroll
+      for (int u = 0; u < 4; ++u) cp_async16(dst + u * 32, src + (s * nt + u) * 32, true);
+    }
+    cp_async_commit();
+    ++fetched;
+  }
+};
+
+// acc (the warp's 32 columns of the RT = 16 MT rows) = A (bf16, staged by
+// stage_bf16) times W (bf16 fragments from st), as mma.sync.m16n8k16 with
+// float32 sums: each element's k-steps in order, onto 0.  Products of two
+// bf16 values are exact in float32.
+template <int MT>
+__device__ __forceinline__ void bf16_product(float* acc, const __nv_bfloat16* a, int lda,
+                                             BfStream& st, int h, int lane) {
+  const int kp = h / 32;
+#pragma unroll
+  for (int i = 0; i < MT * 16; ++i) acc[i] = 0.0f;
+  // byte address of this lane's ldmatrix row: row lane % 16, k-half lane / 16
+  const uint32_t a_at = smem_addr(a + (lane & 15) * lda + (lane >> 4) * 8);
+  for (int p = 0; p < kp; ++p) {
+    cp_async_wait<kBfRing - 1>();
+    const uint4* slot = st.ring + (st.used % kBfRing) * 4 * 32;
+    uint4 b[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) b[u] = slot[u * 32];
+    ++st.used;
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+      for (int ks = 0; ks < 2; ++ks) {
+        uint32_t af[4];
+        ldmatrix_x4(af, a_at + 2 * (16 * mt * lda + 32 * p + 16 * ks));
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          mma_bf16(acc + (mt * 4 + u) * 4, af, ks ? b[u].z : b[u].x, ks ? b[u].w : b[u].y);
+        }
+      }
+    }
+    st.fetch();  // into the slot just read
+  }
+}
+
+// The thread's accumulators -> the bf16 A buffer (row r, column j), each
+// rounded to nearest even, where K4's plain version rounds its operand.
+template <int MT>
+__device__ __forceinline__ void stage_bf16(__nv_bfloat16* a, int lda, const float* acc, int warp,
+                                           int lane) {
+  const int g = lane >> 2, t4 = lane & 3;
+#pragma unroll
+  for (int i = 0; i < MT; ++i) {
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const float* c = acc + (i * 4 + u) * 4;
+      const int at = (16 * i + g) * lda + 32 * warp + 8 * u + 2 * t4;
+      *reinterpret_cast<__nv_bfloat162*>(a + at) = __floats2bfloat162_rn(c[0], c[1]);
+      *reinterpret_cast<__nv_bfloat162*>(a + at + 8 * lda) = __floats2bfloat162_rn(c[2], c[3]);
+    }
+  }
+}
+
+// An activation as the head multiplies it: for kBf16 rounded to bf16, so
+// that its product with W_L's bf16 value (the wrapper rounds W_L) is exact.
+template <Product P>
+__device__ __forceinline__ float head_operand(float a) {
+  if constexpr (P == Product::kBf16) {
+    return __bfloat162float(__float2bfloat16_rn(a));
+  } else {
+    return a;
+  }
+}
+
 template <int R, int T, Product P>
 constexpr int smem_bytes(int h) {
-  return P == Product::kFp32 ? FmaTile<Tile<R, T>::MT>::smem_bytes(h)
-                              : Tile<R, T>::smem_bytes(h);
+  if constexpr (P == Product::kFp32) return FmaTile<Tile<R, T>::MT>::smem_bytes(h);
+  else if constexpr (P == Product::kBf16) return BfTile<Tile<R, T>::MT>::smem_bytes(h);
+  else return Tile<R, T>::smem_bytes(h);
 }
 
 template <int R, int T, Product P>
@@ -181,6 +296,20 @@ fwd_kernel(const float* __restrict__ x, int n, int n_tiles, const float* __restr
   // per hidden layer, W (kFp32: row-major) or its fragments (kTf32x3)
   const int64_t w_layer = static_cast<int64_t>(h) * h;
   float acc[RT];
+  // kBf16: this lane's stream of W fragments, started before the first tile
+  BfStream st{};
+  if constexpr (P == Product::kBf16) {
+    const int kp = h / 32;
+    st.src = reinterpret_cast<const uint4*>(wsrc) + 4 * warp * 32 + lane;
+    st.ring = reinterpret_cast<uint4*>(
+                  smem4 + (2 * RT * (h + kBfPad)) / 16) + warp * (kBfRing * 4 * 32) + lane;
+    st.nt = h / 8;
+    st.per_tile = n_mm * kp;
+    st.steps = st.per_tile * ((n_tiles - blockIdx.x + gridDim.x - 1) / gridDim.x);
+    st.fetched = st.used = 0;
+#pragma unroll
+    for (int i = 0; i < kBfRing; ++i) st.fetch();
+  }
 
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
     const int64_t base = static_cast<int64_t>(tile) * T;
@@ -197,6 +326,11 @@ fwd_kernel(const float* __restrict__ x, int n, int n_tiles, const float* __restr
         stage_rows<MT>(at, acc, warp, lane);
         __syncthreads();
         fma_product<MT>(acc, at, wsrc + l * w_layer, at + h * FmaTile<MT>::kLd, h, warp, lane);
+      } else if constexpr (P == Product::kBf16) {
+        __nv_bfloat16* a = reinterpret_cast<__nv_bfloat16*>(smem);  // (RT, h + kBfPad)
+        stage_bf16<MT>(a, h + kBfPad, acc, warp, lane);
+        __syncthreads();
+        bf16_product<MT>(acc, a, h + kBfPad, st, h, lane);
       } else {
         const int lda = h + kPad;
         float* a_hi = smem;             // (RT, h + kPad): TF32 hi of the carry
@@ -225,7 +359,9 @@ fwd_kernel(const float* __restrict__ x, int n, int n_tiles, const float* __restr
 #pragma unroll
         for (int q = 0; q < R; ++q) {
 #pragma unroll
-          for (int th = 0; th < TH; ++th) v[q * TH + th] += acc[L::idx(q, th, u, e)] * wlj;
+          for (int th = 0; th < TH; ++th) {
+            v[q * TH + th] += head_operand<P>(acc[L::idx(q, th, u, e)]) * wlj;
+          }
         }
       }
     }
@@ -259,7 +395,8 @@ fwd_kernel(const float* __restrict__ x, int n, int n_tiles, const float* __restr
 // (3, h); b1 (h); wh (n_mm, h, h); bh (n_mm, h); wl (h); bl (1); grid tile
 // CTAs (at most the tiles); frag n_mm h^2 floats of workspace for
 // Product::kTf32x3 (unused by kFp32), as ops/kernel_io.py::FwdPlan sizes
-// it; out (n, out_stride).
+// it, and for kBf16 W's n_mm h^2 bf16 fragments, read only (wh is then not
+// read); out (n, out_stride).
 template <int R, int T, Product P>
 int launch(const float* x, int n, const float* w1, const float* b1, const float* wh,
            const float* bh, int n_mm, const float* wl, const float* bl, float w0, float ww,

@@ -1,10 +1,10 @@
-// Building blocks of the SIREN kernels on Hopper: the forward kernels K1
-// and K3a (siren_fwd.cuh) and the backward kernels K2 and K3b
+// Building blocks of the SIREN kernels on Hopper: the forward kernels K1,
+// K3a and K4 (siren_fwd.cuh) and the backward kernels K2 and K3b
 // (siren_bwd.cuh) of a uniform-width sine SIREN.  A point's carry is R
 // rows of width h, [a; J0; J1; J2] and for R = 10 the packed Hessian
-// [H0..H5] (xx, xy, xz, yy, yz, zz), and every hidden layer maps a tile of
-// T points' R*T rows through one (R*T, h) x (h, h) product followed by
-// elementwise work:
+// [H0..H5] (xx, xy, xz, yy, yz, zz); K4 carries a alone (R = 1).  Every
+// hidden layer maps a tile of T points' R*T rows through one (R*T, h) x
+// (h, h) product followed by elementwise work:
 //
 //   z = m_a + b,  s, c = sincos(ww z),  d1 = ww c,  d2 = -ww^2 s
 //   a' = s,  J'_k = d1 m_Jk,  H'_(ij) = d1 m_H(ij) + d2 m_Ji m_Jj.
@@ -23,6 +23,7 @@
 //    products, lo*hi + hi*lo + hi*hi (3xTF32: float32 accuracy on the tensor
 //    cores), B fragments by cp.async from L2, each two-k-step partial added
 //    into float32 registers (the tensor cores' own float32 sum truncates).
+//    K4's bf16 product (mma_bf16) is in siren_fwd.cuh.
 
 #pragma once
 
@@ -77,6 +78,15 @@ __device__ __forceinline__ void mma3x4(float (*d)[4], const uint32_t* ah, const 
   for (int u = 0; u < 4; ++u) mma_tf32(d[u], ah, bl[u][0], bl[u][1], false);
 #pragma unroll
   for (int u = 0; u < 4; ++u) mma_tf32(d[u], ah, bh[u][0], bh[u][1], false);
+}
+
+// d += a b for bf16 a (16x16, row) and b (16x8, col), float32 d: the bf16
+// products of K4 (siren_fwd.cuh, Product::kBf16).
+__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a, uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // v split into TF32 hi and lo, as floats (their bit patterns).
@@ -143,10 +153,11 @@ struct Tile {
   // depth of the per-thread B-fragment ring, in k-pairs: as deep as the
   // shared memory left by the A buffer at the widest net allows (3 at R*T =
   // 80 rows, 5 at 64), less 8 KB for the static arrays
+  // (the value-only tiles of K4, whose products are bf16, have no such ring)
   static constexpr int kRing = (kSmem - 8192 - 2 * RT * (kMaxH + kPad) * 4) / (kMaxH * 4 * 16);
-  static_assert(kRing >= 2, "no room for the B ring");
   // dynamic shared memory: the A buffer's hi and lo parts and the B rings
   static constexpr int smem_bytes(int h) {
+    static_assert(kRing >= 2, "no room for the B ring");
     return 2 * RT * (h + kPad) * 4 + h * kRing * 4 * 16;
   }
 };
@@ -263,10 +274,11 @@ __device__ __forceinline__ void stage_tile(float* a_hi, float* a_lo, int lda, co
 }
 
 // acc = the first layer's carry of a tile's T points, whose x are xs (3 T
-// floats): z = x W1 + b1, then a = sin(w0 z), its Jacobian and, for R = 10,
-// its packed Hessian.  z rounds as the plain versions' x @ W1 + b1: one FMA
-// chain over x's coordinates in order, then the bias (sin(w0 z) amplifies
-// z's rounding by w0).
+// floats): z = x W1 + b1, then a = sin(w0 z), for R = 1 alone (K4's value
+// carry, fast_sin), else with its Jacobian and, for R = 10, its packed
+// Hessian.  z rounds as the plain versions' x @ W1 + b1: one FMA chain over
+// x's coordinates in order, then the bias (sin(w0 z) amplifies z's rounding
+// by w0).
 template <int R, int T>
 __device__ __forceinline__ void first_layer(float* acc, const float* xs,
                                             const float* __restrict__ w1,
@@ -285,21 +297,25 @@ __device__ __forceinline__ void first_layer(float* acc, const float* xs,
       for (int th = 0; th < L::TH; ++th) {
         const int t = g + 8 * th;
         const float z = fmaf(xs[3 * t + 2], wc, fmaf(xs[3 * t + 1], wb, xs[3 * t] * wa)) + bj;
-        float s, c;
-        fast_sincos(w0 * z, &s, &c);
-        const float d1 = w0 * c;
-        acc[L::idx(0, th, u, e)] = s;
-        acc[L::idx(1, th, u, e)] = d1 * wa;
-        acc[L::idx(2, th, u, e)] = d1 * wb;
-        acc[L::idx(3, th, u, e)] = d1 * wc;
-        if constexpr (R == 10) {
-          const float d2 = -w0sq * s;
-          acc[L::idx(4, th, u, e)] = d2 * (wa * wa);
-          acc[L::idx(5, th, u, e)] = d2 * (wa * wb);
-          acc[L::idx(6, th, u, e)] = d2 * (wa * wc);
-          acc[L::idx(7, th, u, e)] = d2 * (wb * wb);
-          acc[L::idx(8, th, u, e)] = d2 * (wb * wc);
-          acc[L::idx(9, th, u, e)] = d2 * (wc * wc);
+        if constexpr (R == 1) {
+          acc[L::idx(0, th, u, e)] = fast_sin(w0 * z);
+        } else {
+          float s, c;
+          fast_sincos(w0 * z, &s, &c);
+          const float d1 = w0 * c;
+          acc[L::idx(0, th, u, e)] = s;
+          acc[L::idx(1, th, u, e)] = d1 * wa;
+          acc[L::idx(2, th, u, e)] = d1 * wb;
+          acc[L::idx(3, th, u, e)] = d1 * wc;
+          if constexpr (R == 10) {
+            const float d2 = -w0sq * s;
+            acc[L::idx(4, th, u, e)] = d2 * (wa * wa);
+            acc[L::idx(5, th, u, e)] = d2 * (wa * wb);
+            acc[L::idx(6, th, u, e)] = d2 * (wa * wc);
+            acc[L::idx(7, th, u, e)] = d2 * (wb * wb);
+            acc[L::idx(8, th, u, e)] = d2 * (wb * wc);
+            acc[L::idx(9, th, u, e)] = d2 * (wc * wc);
+          }
         }
       }
     }
@@ -307,7 +323,8 @@ __device__ __forceinline__ void first_layer(float* acc, const float* xs,
 }
 
 // The hidden activation on the product m = acc, in place (b: the layer's
-// bias): a' = s, J' = d1 m_J and, for R = 10, H' = d1 m_H + d2 m_Ji m_Jj.
+// bias): a' = s (R = 1: fast_sin alone), J' = d1 m_J and, for R = 10,
+// H' = d1 m_H + d2 m_Ji m_Jj.
 template <int R, int T>
 __device__ __forceinline__ void activate(float* acc, const float* __restrict__ b, float ww,
                                          int warp, int lane) {
@@ -322,23 +339,27 @@ __device__ __forceinline__ void activate(float* acc, const float* __restrict__ b
       const float bj = b[j];
 #pragma unroll
       for (int th = 0; th < L::TH; ++th) {
-        float s, c;
-        fast_sincos(ww * (acc[L::idx(0, th, u, e)] + bj), &s, &c);
-        const float d1 = ww * c;
-        const float j0 = acc[L::idx(1, th, u, e)], j1 = acc[L::idx(2, th, u, e)],
-                    j2 = acc[L::idx(3, th, u, e)];
-        acc[L::idx(0, th, u, e)] = s;
-        acc[L::idx(1, th, u, e)] = d1 * j0;
-        acc[L::idx(2, th, u, e)] = d1 * j1;
-        acc[L::idx(3, th, u, e)] = d1 * j2;
-        if constexpr (R == 10) {
-          const float d2 = -wwsq * s;
-          acc[L::idx(4, th, u, e)] = d1 * acc[L::idx(4, th, u, e)] + d2 * (j0 * j0);
-          acc[L::idx(5, th, u, e)] = d1 * acc[L::idx(5, th, u, e)] + d2 * (j0 * j1);
-          acc[L::idx(6, th, u, e)] = d1 * acc[L::idx(6, th, u, e)] + d2 * (j0 * j2);
-          acc[L::idx(7, th, u, e)] = d1 * acc[L::idx(7, th, u, e)] + d2 * (j1 * j1);
-          acc[L::idx(8, th, u, e)] = d1 * acc[L::idx(8, th, u, e)] + d2 * (j1 * j2);
-          acc[L::idx(9, th, u, e)] = d1 * acc[L::idx(9, th, u, e)] + d2 * (j2 * j2);
+        if constexpr (R == 1) {
+          acc[L::idx(0, th, u, e)] = fast_sin(ww * (acc[L::idx(0, th, u, e)] + bj));
+        } else {
+          float s, c;
+          fast_sincos(ww * (acc[L::idx(0, th, u, e)] + bj), &s, &c);
+          const float d1 = ww * c;
+          const float j0 = acc[L::idx(1, th, u, e)], j1 = acc[L::idx(2, th, u, e)],
+                      j2 = acc[L::idx(3, th, u, e)];
+          acc[L::idx(0, th, u, e)] = s;
+          acc[L::idx(1, th, u, e)] = d1 * j0;
+          acc[L::idx(2, th, u, e)] = d1 * j1;
+          acc[L::idx(3, th, u, e)] = d1 * j2;
+          if constexpr (R == 10) {
+            const float d2 = -wwsq * s;
+            acc[L::idx(4, th, u, e)] = d1 * acc[L::idx(4, th, u, e)] + d2 * (j0 * j0);
+            acc[L::idx(5, th, u, e)] = d1 * acc[L::idx(5, th, u, e)] + d2 * (j0 * j1);
+            acc[L::idx(6, th, u, e)] = d1 * acc[L::idx(6, th, u, e)] + d2 * (j0 * j2);
+            acc[L::idx(7, th, u, e)] = d1 * acc[L::idx(7, th, u, e)] + d2 * (j1 * j1);
+            acc[L::idx(8, th, u, e)] = d1 * acc[L::idx(8, th, u, e)] + d2 * (j1 * j2);
+            acc[L::idx(9, th, u, e)] = d1 * acc[L::idx(9, th, u, e)] + d2 * (j2 * j2);
+          }
         }
       }
     }

@@ -1,10 +1,11 @@
-"""What the SIREN kernel wrappers (:mod:`.vgh`, :mod:`.vg`) share: the
-``nvcc`` command, the checks on what the kernels compute, the operands in
-the layout the kernels read, and the launches of the forward kernels K1 and
-K3a (``csrc/siren_fwd.cuh``) and the backward kernels K2 and K3b
-(``csrc/siren_bwd.cuh``) with the plans of their grids, workspaces and
-device-memory bytes (:class:`FwdPlan`, :class:`BwdPlan`).  Also the TF32
-split that K2, K3a and K3b multiply with (:func:`tf32_split`,
+"""What the SIREN kernel wrappers (:mod:`.vgh`, :mod:`.vg`, :mod:`.value`)
+share: the ``nvcc`` command, the checks on what the kernels compute, the
+operands in the layout the kernels read, and the launches of the forward
+kernels K1 and K3a (``csrc/siren_fwd.cuh``) and the backward kernels K2 and
+K3b (``csrc/siren_bwd.cuh``) with the plans of their grids, workspaces and
+device-memory bytes (:class:`FwdPlan`, :class:`BwdPlan`), and K4's plan
+(:class:`ValuePlan`) and bf16 fragments (:func:`value_fragments`).  Also
+the TF32 split that K2, K3a and K3b multiply with (:func:`tf32_split`,
 :func:`matmul_3xtf32`), in torch, so that its accuracy can be rehearsed on
 the CPU.
 
@@ -321,6 +322,98 @@ def launch_backward(fn, tile: int, rows: int, params, spec, x, cot):
     if rc:
         raise RuntimeError(f"backward kernel launch failed with CUDA error {rc}")
     return unflatten_params(out, spec)
+
+
+# K4's tiles (csrc/value.cu builds fwd_kernel<1, T, P> for each) and, as in
+# csrc/siren_fwd.cuh, the bf16 A-row padding and fragment ring depth of its
+# bf16 product, and fma_product's ring (kChunk rows, kStages slots)
+VALUE_TILES = (16, 32, 64, 128)
+BF_PAD = 8
+BF_RING = 8
+FMA_CHUNK, FMA_STAGES = 16, 3
+
+
+def value_fragments(wh: torch.Tensor) -> torch.Tensor:
+    """W of every hidden layer, (n_mm, h, h) with W[l][k][n], in the order of
+    K4's bf16 B fragments (``csrc/siren_fwd.cuh``, Product::kBf16): for layer
+    l, k-pair p (k in [32p, 32p + 32)), 8-column tile u and lane 4g + t4
+    (column n = 8u + g), the eight values W[32p + 16s + 8i + 2 t4 + e][n]
+    in (s, i, e) order: the two registers of mma.sync.m16n8k16's B fragment
+    for k-step 2p (s = 0) and 2p + 1, the lower k in each register's low
+    half.  Same dtype as ``wh``; (n_mm, h/32, h/8, 32, 8)."""
+    n_mm, h, _ = wh.shape
+    return (wh.reshape(n_mm, h // 32, 2, 2, 4, 2, h // 8, 8)
+            .permute(0, 1, 6, 7, 4, 2, 3, 5)
+            .reshape(n_mm, h // 32, h // 8, 32, 8).contiguous())
+
+
+@dataclass(frozen=True)
+class ValuePlan:
+    """Tile, grid, shared memory and bytes of one K4 launch (``csrc/
+    value.cu``) on ``n`` points of a net of width ``h`` with ``n_mm`` hidden
+    products, in the bf16 (``mixed``) or float32 mode, on a card with
+    ``sms`` SMs.  :func:`value_plan` picks the tile."""
+
+    tile: int
+    mixed: bool
+    h: int
+    n_mm: int
+    n: int
+    sms: int
+
+    @property
+    def n_tiles(self) -> int:
+        return -(-self.n // self.tile)
+
+    @property
+    def grid(self) -> int:
+        """CTAs: persistent, at most one per SM; CTA c takes tiles c,
+        c + grid, ..."""
+        return min(self.sms, self.n_tiles)
+
+    @property
+    def smem_bytes(self) -> int:
+        """Dynamic shared memory of a CTA (``value_smem`` in csrc): the bf16
+        carry (T rows, h + BF_PAD wide) and every warp's fragment ring; or
+        fma_product's transposed carry and W ring."""
+        h, t = self.h, self.tile
+        if self.mixed:
+            return 2 * t * (h + BF_PAD) + (h // 32) * BF_RING * 4 * 32 * 16
+        rows = t // 8  # a thread's rows: 2 MT for MT = T / 16 m-tiles
+        ld = 8 * (-(-rows // 4) * 4)
+        return 4 * (h * ld + FMA_STAGES * FMA_CHUNK * h)
+
+    @property
+    def w_bytes(self) -> int:
+        """Bytes of the hidden layers' W as the launch reads it: bf16
+        fragments or float32 rows."""
+        return (2 if self.mixed else 4) * self.n_mm * self.h * self.h
+
+    @property
+    def bytes_moved(self) -> int:
+        """Device-memory bytes a launch moves by the design: x read and f
+        written once, W and the other weights read once (the fragments are
+        laid out once per trace, not per launch)."""
+        small = 4 * (3 * self.h + self.h + self.n_mm * self.h + self.h + 1)
+        return 16 * self.n + self.w_bytes + small
+
+    @property
+    def l2_bytes(self) -> int:
+        """Bytes of W the tiles read from L2: all of it once a tile."""
+        return self.n_tiles * self.w_bytes
+
+
+def value_plan(spec: SirenSpec, n: int, mixed: bool, sms: int) -> ValuePlan:
+    """K4's plan for ``n`` points: the tile of VALUE_TILES that takes the
+    fewest rows a CTA, ceil(tiles / sms) * T (a tile's time grows with its
+    rows), the larger tile on a tie (fewer passes over W in L2)."""
+    def rows_per_cta(t):
+        tiles = -(-n // t)
+        return -(-tiles // sms) * t
+
+    tile = min(VALUE_TILES, key=lambda t: (rows_per_cta(t), -t))
+    return ValuePlan(tile=tile, mixed=mixed, h=spec.hidden[0], n_mm=len(spec.hidden) - 1, n=n,
+                     sms=sms)
 
 
 def tf32_round(a: torch.Tensor) -> torch.Tensor:

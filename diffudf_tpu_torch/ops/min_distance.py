@@ -17,7 +17,9 @@ the argmin is carried through the scan as the JAX package's XLA brute force
 does (``data/mesh_distance.py::_min_sq_dist_tile``).  In float64 the plain
 version is the witness the kernel is held to.
 
-The library is built from source with ``nvcc`` at first use (:func:`build`)
+The wrapper allocates the kernel's workspace, the cloud staged once as
+float4 (x, y, z, |c|²) in whole tiles (:func:`workspace_floats`).  The
+library is built from source with ``nvcc`` at first use (:func:`build`)
 into the ignored build directory and bound with ``ctypes``.  ``launches``
 counts kernel launches and ``queries`` the rows they answered.
 """
@@ -37,8 +39,8 @@ QUERY_TILE = 16384  # queries a step of the plain version: bounds its (tile, chu
 
 _SOURCES = kio.sources("min_distance.cu")
 _P = ctypes.c_void_p
-# (q, nq, cloud, m, out, stream)
-_ARGTYPES = [_P, ctypes.c_int64, _P, ctypes.c_int64, _P, _P]
+# (q, nq, cloud, m, work, out, stream)
+_ARGTYPES = [_P, ctypes.c_int64, _P, ctypes.c_int64, _P, _P, _P]
 
 # K5 launches, and the queries they answered, since the counts were last set to 0
 launches = 0
@@ -55,7 +57,15 @@ def _lib():
     lib = ctypes.CDLL(build())
     lib.min_distance_launch.argtypes = _ARGTYPES
     lib.min_distance_launch.restype = ctypes.c_int
+    for fn in (lib.min_distance_tile, lib.min_distance_block):
+        fn.argtypes, fn.restype = [], ctypes.c_int
     return lib
+
+
+def workspace_floats(m: int, tile: int) -> int:
+    """Floats of K5's workspace for an m-point cloud: the cloud staged as
+    float4 (x, y, z, |c|²), padded to whole tiles of ``tile`` points."""
+    return 4 * tile * -(-m // tile)
 
 
 def _check(queries: torch.Tensor, cloud: torch.Tensor):
@@ -118,9 +128,12 @@ def min_distance(q: torch.Tensor, cloud: torch.Tensor) -> torch.Tensor:
     out = torch.empty(n, device=dev, dtype=torch.float32)
     if n == 0:
         return out
+    m = cloud.shape[0]
+    work = torch.empty(workspace_floats(m, lib.min_distance_tile()), device=dev,
+                       dtype=torch.float32)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.min_distance_launch(q.data_ptr(), n, cloud.data_ptr(), cloud.shape[0],
+        rc = lib.min_distance_launch(q.data_ptr(), n, cloud.data_ptr(), m, work.data_ptr(),
                                      out.data_ptr(), stream)
     if rc:
         raise RuntimeError(f"min_distance kernel launch failed with CUDA error {rc}")

@@ -90,9 +90,11 @@ def _value_kernel_ok(spec: SirenSpec, device) -> bool:
 
 def _trace_segment_body(params, spec, t0, rays, active, hits, *, gt_mode,
                         alpha, surface_threshold, segment, fast,
-                        use_pallas=False, relaxation: float = 1.0):
+                        relaxation: float = 1.0, weights=None):
     """``segment`` march iterations over a compact ray bucket; -> the new
-    (t0, active, hits).
+    (t0, active, hits).  With K4's ``weights`` (:func:`..ops.value.
+    prepare`'s layout) each iteration is one K4 launch; without them the
+    plain torch value.
 
     ``relaxation`` ω > 1 enables over-relaxed sphere tracing (Keinert et
     al. 2014), one field evaluation per iteration: march ω·d; if the next
@@ -104,8 +106,8 @@ def _trace_segment_body(params, spec, t0, rays, active, hits, *, gt_mode,
     compute_dtype = torch.bfloat16 if fast else None
 
     def field(pts):
-        if use_pallas:
-            return k4.value(params, spec, pts, compute_dtype=compute_dtype)
+        if weights is not None:
+            return k4.value(params, spec, pts, compute_dtype=compute_dtype, weights=weights)
         return value(params, spec, pts, compute_dtype=compute_dtype)
 
     omega = float(relaxation)
@@ -147,7 +149,7 @@ def _trace_segment_body(params, spec, t0, rays, active, hits, *, gt_mode,
 
 
 def _march_round(params, spec, t0, rays, active, hits, *, gt_mode, alpha,
-                 surface_threshold, bucket, segment, fast, use_pallas, relaxation):
+                 surface_threshold, bucket, segment, fast, relaxation, weights=None):
     """One round: gather the ≤ bucket active rays to the front (a stable
     sort keeps them in order), march ``segment`` iterations on the bucket,
     scatter back.  Updates t0, active and hits in place; -> them and the
@@ -158,7 +160,7 @@ def _march_round(params, spec, t0, rays, active, hits, *, gt_mode, alpha,
         params, spec, t0[perm], rays[perm], active[perm],
         torch.zeros(bucket, dtype=torch.bool, device=t0.device),
         gt_mode=gt_mode, alpha=alpha, surface_threshold=surface_threshold,
-        segment=segment, fast=fast, use_pallas=use_pallas, relaxation=relaxation,
+        segment=segment, fast=fast, relaxation=relaxation, weights=weights,
     )
     t0[perm] = t0_b
     hits[perm] = hits[perm] | hit_b
@@ -174,6 +176,14 @@ def _bucket_for(count: int, n: int) -> int:
 def _padded_rays(n_rays: int) -> int:
     """Rays are padded to a multiple of 1024, so every bucket is one."""
     return ((n_rays + 1023) // 1024) * 1024
+
+
+def _k4_weights(params, spec, use_pallas: bool, fast: bool):
+    """K4's weights laid out once for a whole trace, or None off the
+    kernel."""
+    if not use_pallas:
+        return None
+    return k4.prepare(params, spec, compute_dtype=torch.bfloat16 if fast else None)
 
 
 def warmup_compacted(params, spec: SirenSpec, n_rays: int, *, gt_mode: str, alpha: float,
@@ -197,12 +207,12 @@ def warmup_compacted(params, spec: SirenSpec, n_rays: int, *, gt_mode: str, alph
     rays = torch.zeros_like(t0)
     active = torch.zeros(n, dtype=torch.bool, device=dev)
     hits = torch.zeros_like(active)
+    weights = _k4_weights(params, spec, _value_kernel_ok(spec, dev), fast)
     for bk in sorted(buckets):
         for seg in sorted(segments):
             _march_round(params, spec, t0, rays, active, hits, gt_mode=gt_mode, alpha=alpha,
                          surface_threshold=surface_threshold, bucket=bk, segment=seg,
-                         fast=fast, use_pallas=_value_kernel_ok(spec, dev),
-                         relaxation=relaxation)
+                         fast=fast, relaxation=relaxation, weights=weights)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
 
@@ -243,8 +253,9 @@ def trace_rays_compacted(params, spec: SirenSpec, origins, rays, active0, *, gt_
     it after every round.
 
     ``use_pallas``: None (the default) takes K4 where
-    :func:`_value_kernel_ok` holds, False the plain torch value.  ``fast``
-    selects the mixed bf16 mode.  Same contract and result as
+    :func:`_value_kernel_ok` holds, False the plain torch value; K4's
+    weights are laid out once for the trace.  ``fast`` selects the mixed
+    bf16 mode.  Same contract and result as
     :func:`trace_rays`: -> numpy (positions, hits, iterations), or device
     tensors with ``return_device=True``.  The caller's arrays are not
     changed.
@@ -261,6 +272,7 @@ def trace_rays_compacted(params, spec: SirenSpec, origins, rays, active0, *, gt_
     hits = torch.zeros_like(active)
     if use_pallas is None:
         use_pallas = _value_kernel_ok(spec, dev)
+    weights = _k4_weights(params, spec, use_pallas, fast)
     count = int(active.sum())
     it = 0
     pending = None  # in-flight count read from an earlier round
@@ -269,7 +281,7 @@ def trace_rays_compacted(params, spec: SirenSpec, origins, rays, active0, *, gt_
         t0, active, hits, post_count = _march_round(
             params, spec, t0, rays_d, active, hits, gt_mode=gt_mode, alpha=alpha,
             surface_threshold=surface_threshold, bucket=_bucket_for(count, n),
-            segment=seg, fast=fast, use_pallas=use_pallas, relaxation=relaxation,
+            segment=seg, fast=fast, relaxation=relaxation, weights=weights,
         )
         it += seg
         if count > n * pipeline_below:

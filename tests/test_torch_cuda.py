@@ -217,6 +217,78 @@ def test_value_kernel_is_bit_reproducible(mode):
     assert torch.equal(first, second)
 
 
+def _k4_gate(got, want, mode):
+    return float(((got - want).abs() / (K4_TOL[mode] + RTOL * want.abs())).max())
+
+
+# the march's buckets at 8x256; widths 32-256 with a ragged last tile; n
+# below one tile; a net with no hidden product (n_mm = 0)
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["f32", "bf16"])
+@pytest.mark.parametrize("hidden,n", [((256,) * 8, 1024), ((256,) * 8, 4096),
+                                      ((256,) * 8, 16384), ((256,) * 8, 65536),
+                                      ((32,) * 4, 3001), ((96,) * 3, 1001), ((160,) * 3, 777),
+                                      ((256,) * 3, 2049), ((64,) * 3, 5), ((64,), 1000)])
+def test_value_kernel_at_the_march_buckets_and_widths(hidden, n, mode):
+    """K4 on the tile design against value_reference: every tile size the
+    plan picks, every width class, ragged and tiny n, n_mm = 0; weights laid
+    out once (as the march does) give the same bits as weights laid out by
+    the launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: K4 has no CPU mode")
+    spec, params, x, _ = _case(hidden, n, seed=len(hidden) + n)
+    dt = K4_DTYPE[mode]
+    weights = tval.prepare(params, spec, compute_dtype=dt)
+    before = (tval.launches, tval.points, tval.launches_at[n])
+    got = tval.value(params, spec, x, compute_dtype=dt, weights=weights)
+    again = tval.value(params, spec, x, compute_dtype=dt)
+    torch.cuda.synchronize()
+    assert (tval.launches, tval.points, tval.launches_at[n]) == (
+        before[0] + 2, before[1] + 2 * n, before[2] + 2)
+    assert torch.equal(got, again)
+    want = tval.value_reference(params, spec, x, compute_dtype=dt)
+    assert got.shape == (n,) and bool(torch.isfinite(got).all())
+    assert _k4_gate(got, want, mode) <= 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["f32", "bf16"])
+def test_value_kernel_bits_do_not_depend_on_the_tile(mode):
+    """A point's f sums in the same order at every tile size: the first
+    1,024 points of a 65,536-point launch (tiles of 128) and a 1,024-point
+    launch (tiles of 16) give the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from diffudf_tpu_torch.ops import kernel_io as kio
+
+    spec, params, x, _ = _case((256,) * 8, 65536, seed=6)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    tiles = {kio.value_plan(spec, n, mode == "bf16", sms).tile for n in (65536, 4096, 1024)}
+    assert len(tiles) == 3
+    full = tval.value(params, spec, x, compute_dtype=K4_DTYPE[mode])
+    for n in (4096, 1024):
+        part = tval.value(params, spec, x[:n].contiguous(), compute_dtype=K4_DTYPE[mode])
+        torch.cuda.synchronize()
+        assert torch.equal(part, full[:n]), n
+
+
+@pytest.mark.cuda
+def test_value_plan_shared_memory_matches_the_library():
+    """ValuePlan.smem_bytes against the library's own value_smem for every
+    tile, width and mode."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from diffudf_tpu_torch.ops import kernel_io as kio
+
+    lib = tval._lib()
+    for tile in kio.VALUE_TILES:
+        for h in range(32, 257, 32):
+            for mixed in (False, True):
+                p = kio.ValuePlan(tile=tile, mixed=mixed, h=h, n_mm=2, n=1, sms=132)
+                assert lib.value_smem(tile, h, int(mixed)) == p.smem_bytes, (tile, h, mixed)
+    assert lib.value_smem(8, 256, 1) == -1
+
+
 @pytest.mark.cuda
 def test_wide_net_takes_the_plain_path():
     """A 512-wide net is beyond the kernels (at most 256 columns): on the
@@ -281,6 +353,28 @@ def test_min_distance_kernel_matches_plain_version(case):
     want = tmd.min_distance_reference(q, cloud)
     exact = tmd.min_distance_reference(q.double(), cloud.double())
     assert got.shape == (len(q),) and bool(torch.isfinite(got).all())
+    assert float((got - want).abs().max()) <= K5_TOL
+    assert float((got.double() - exact).abs().max()) <= K5_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nq,m", [(1023, 5000), (2049, 1024), (3001, 1025), (4095, 3)])
+def test_min_distance_kernel_at_ragged_query_blocks(nq, m):
+    """Query counts that are not a multiple of K5's 2,048 queries a CTA,
+    clouds of one tile, one point past a tile and below a tile's 64-point
+    groups."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: K5 has no CPU mode")
+    assert tmd._lib().min_distance_block() == 2048 and nq % 2048
+    rng = np.random.default_rng(nq + m)
+    q = torch.as_tensor(rng.normal(size=(nq, 3)), dtype=torch.float32, device="cuda")
+    cloud = torch.as_tensor(rng.normal(size=(m, 3)), dtype=torch.float32, device="cuda")
+    got = tmd.min_distance(q, cloud)
+    torch.cuda.synchronize()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    want = tmd.min_distance_reference(q, cloud)
+    exact = tmd.min_distance_reference(q.double(), cloud.double())
+    assert got.shape == (nq,) and bool(torch.isfinite(got).all())
     assert float((got - want).abs().max()) <= K5_TOL
     assert float((got.double() - exact).abs().max()) <= K5_TOL
 
