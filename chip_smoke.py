@@ -72,11 +72,13 @@ Phases, in order, each printing its seconds:
                 by element, and in float32 against the plain version in
                 float64, on pass 1's entry points at the first round's
                 bucket shape; then, on the weights laid out once as the
-                march lays them out, K4's times in both modes at every
-                bucket of the march (65,536 down to 1,024 points) beside
-                each bound, tile, grid and bytes, the plain versions' at
-                the first bucket, and K4's estimated share of pass 1's
-                march: its launches at each bucket times that bucket's time;
+                march lays them out, K4 in both modes at every bucket of
+                the march (65,536 down to 1,024 points, each with its own
+                tile) against its plain version under the same gate, and
+                its times beside each bound, tile, grid and bytes, the
+                plain versions' at the first bucket, and K4's estimated
+                share of pass 1's march: its launches at each bucket times
+                that bucket's time;
  11. figures  — ``diffudf_tpu_torch.cli.generate_df.main`` at width 512 on
                 the trained torus against its point cloud (one K1 and one
                 K5 launch) and against its normalised mesh ``torus_t.obj``
@@ -903,8 +905,9 @@ def value_bound(n_points, hidden, mode):
 def render_kernel_phase(cfg, model_path, pass1):
     """K4 against value_reference in both modes on pass 1's entry points,
     padded and compacted as the tracer's first round gives them to K4; then
-    K4's times at every bucket of the march and its share of pass 1's march
-    (``pass1``: phase 9's record of that pass)."""
+    K4 against value_reference and its times at every bucket of the march,
+    and its share of pass 1's march (``pass1``: phase 9's record of that
+    pass)."""
     from diffudf_tpu_torch.fields.siren import SirenSpec
     from diffudf_tpu_torch.ops import kernel_io as kio
     from diffudf_tpu_torch.ops import value
@@ -953,8 +956,10 @@ def render_kernel_phase(cfg, model_path, pass1):
     if failed:
         raise AssertionError("; ".join(failed))
 
-    # times at every bucket the march visits, on the weights as the march
-    # lays them out once per trace; the plain version at the first bucket
+    # at every bucket the march visits (its tile follows the bucket), on the
+    # weights as the march lays them out once per trace: K4 against the plain
+    # version under the same gate, and its times; the plain version's time
+    # at the first bucket
     visited = {int(b) for b in pass1["k4_at"]}
     buckets = sorted(visited | {b for b in (1024, 4096, 16384, 65536) if b <= bucket},
                      reverse=True)
@@ -964,17 +969,27 @@ def render_kernel_phase(cfg, model_path, pass1):
         out[mode]["buckets"] = {}
         for b in buckets:
             xb = x[:b].contiguous()
+            got = value.value(params, spec, xb, compute_dtype=dt, weights=weights)
+            want = value.value_reference(params, spec, xb, compute_dtype=dt)
+            torch.cuda.synchronize()
+            err = (got - want).abs()
+            worst = float((err / (K4_TOL[mode] + RTOL * want.abs())).max())
+            if not worst <= 1:
+                failed.append(f"K4 {mode} at {b} points outside its tolerance of the plain "
+                              f"version")
             ms = cuda_ms(lambda: value.value(params, spec, xb, compute_dtype=dt,
                                              weights=weights), 20)
             bound, by = value_bound(b, HIDDEN, mode)
             plan = kio.value_plan(spec, b, mode == "bf16", sms)
             row = {"ms": ms, "bound_ms": bound, "bound_by": by, "tile": plan.tile,
-                   "grid": plan.grid, "bytes_moved": plan.bytes_moved, "l2_bytes": plan.l2_bytes}
+                   "grid": plan.grid, "bytes_moved": plan.bytes_moved, "l2_bytes": plan.l2_bytes,
+                   "max_abs_err": float(err.max()), "worst_err_over_limit": worst}
             out[mode]["buckets"][b] = row
-            print(f"[render-kernel] K4 {mode} at {b} points: {ms:.3f} ms (median of 20), bound "
-                  f"{bound:.3f} ms ({by}), {bound / ms:.1%} of the bound; tile {plan.tile}, "
-                  f"{plan.grid} CTAs, device memory {plan.bytes_moved / 1e6:.3f} MB, W from L2 "
-                  f"{plan.l2_bytes / 1e6:.1f} MB ({plan.l2_bytes / ms / 1e9:.2f} TB/s)")
+            print(f"[render-kernel] K4 {mode} at {b} points: max |K4 - plain| "
+                  f"{float(err.max()):.3e}, worst err/limit {worst:.3f}; {ms:.3f} ms (median of "
+                  f"20), bound {bound:.3f} ms ({by}), {bound / ms:.1%} of the bound; tile "
+                  f"{plan.tile}, {plan.grid} CTAs, device memory {plan.bytes_moved / 1e6:.3f} MB, "
+                  f"W from L2 {plan.l2_bytes / 1e6:.1f} MB ({plan.l2_bytes / ms / 1e9:.2f} TB/s)")
         plain_ms = cuda_ms(lambda: value.value_reference(params, spec, x, compute_dtype=dt), 20)
         first = out[mode]["buckets"][bucket]
         out[mode].update(ms=first["ms"], plain_ms=plain_ms, bound_ms=first["bound_ms"],
@@ -989,6 +1004,8 @@ def render_kernel_phase(cfg, model_path, pass1):
     print(f"[render-kernel] K4 in pass 1's march: {est:.3f} ms estimated (launches by bucket "
           f"{pass1['k4_at']} x each bucket's time) of its {1e3 * pass1['march_s']:.3f} ms march: "
           f"{out['march_share']['share']:.1%}")
+    if failed:
+        raise AssertionError("; ".join(failed))
     return out
 
 

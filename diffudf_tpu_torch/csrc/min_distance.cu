@@ -31,19 +31,25 @@
 // Design.  A first kernel (stage_kernel) writes the cloud once as float4
 // (x, y, z, |c|^2) into the wrapper's workspace, padded to whole tiles of
 // kTile points with sentinels whose rank is +inf.  The scan kernel gives
-// each thread kQPT = 8 queries (so one broadcast LDS.128 of a cloud point
-// feeds 24 FMAs and 8 mins) and kThreads = 256 threads a CTA (at the
-// figure's 262,144 queries, 128 CTAs: one an SM, evenly loaded; 128-thread
-// CTAs, two an SM, ran 3% slower); the cloud streams through two shared
-// tiles, the next tile's cp.async copy in flight while the current one is
-// scanned, one barrier a tile.  No padding leaks to the caller: the query
-// count and the cloud size are arbitrary and the last CTA masks its
-// missing queries.
+// each thread kQPT = 4 queries (one broadcast LDS.128 of a cloud point
+// feeds 12 FMAs and 4 mins) and kThreads = 512 threads a CTA (at the
+// figure's 262,144 queries, 128 CTAs: one an SM, four warps a scheduler);
+// the cloud streams through two shared tiles, the next tile's cp.async
+// copy in flight while the current one is scanned, one barrier a tile.
+// More queries a thread feed more FMAs a load but leave fewer warps to
+// hide latency: in turns on an H100 at 700 W (scripts/march_kernel_check.py
+// --k5-variants), 8 queries a thread in 256-thread CTAs (77 registers, the
+// same 2,048 queries a CTA) ran 1.4% slower, 256-thread CTAs 0.9% slower,
+// 128-thread CTAs 5% slower, groups of 32 points 1.3% slower.  No padding
+// leaks to the caller: the query count and the cloud size are arbitrary
+// and the last CTA masks its missing queries.
 //
-// What holds it above the issue floor (scripts/march_kernel_check.py
-// --k5-variants, H100 at 700 W, SM clock at 1980 MHz throughout): with the
-// min replaced by an add the scan takes 84% of the time, with a two-FMA
-// rank 72%; the FMNMX costs about two FP32 issue slots, not one.
+// What holds it above the issue floor (the same runs, SM clock at 1980 MHz
+// throughout): the scan's time follows its instruction count, about 1.4
+// warp-clocks a pair for every one of the floor's: a two-FMA rank (three
+// slots a pair, not four) takes 75% of the time, the min replaced by an
+// add 95%.  What the extra clocks are (loads, the group checks, operand
+// reads) was not profiled.
 //
 // Built by ops/min_distance.py with nvcc -gencode arch=compute_90a,code=sm_90a
 // -O3 into a shared library with a plain C interface, loaded with ctypes.
@@ -54,8 +60,8 @@
 
 namespace {
 
-constexpr int kThreads = 256;  // threads per CTA
-constexpr int kQPT = 8;        // queries per thread
+constexpr int kThreads = 512;  // threads per CTA
+constexpr int kQPT = 4;        // queries per thread
 constexpr int kTile = 1024;    // cloud points a staged tile (16 KB)
 constexpr int kGroup = 64;     // cloud points between two argmin checks
 
@@ -163,9 +169,6 @@ extern "C" {
 // Cloud points a staged tile: the workspace holds ceil(m / tile) * tile
 // float4.
 int min_distance_tile() { return kTile; }
-
-// Queries a CTA answers.
-int min_distance_block() { return kThreads * kQPT; }
 
 // Launches K5 on `stream` and returns cudaGetLastError() (0 = ok).
 // q (nq, 3), cloud (m, 3), out (nq): contiguous float32 on one device;

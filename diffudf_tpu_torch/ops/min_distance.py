@@ -57,8 +57,7 @@ def _lib():
     lib = ctypes.CDLL(build())
     lib.min_distance_launch.argtypes = _ARGTYPES
     lib.min_distance_launch.restype = ctypes.c_int
-    for fn in (lib.min_distance_tile, lib.min_distance_block):
-        fn.argtypes, fn.restype = [], ctypes.c_int
+    lib.min_distance_tile.argtypes, lib.min_distance_tile.restype = [], ctypes.c_int
     return lib
 
 

@@ -32,8 +32,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
-from bwd_kernel_check import kernel_times  # noqa: E402
-from fwd_kernel_check import build  # noqa: E402
+from kernel_check_util import build, kernel_times  # noqa: E402
 from diffudf_tpu_torch.fields.siren import (  # noqa: E402
     SirenSpec, flatten_params, init_siren, params_from_jax)
 from diffudf_tpu_torch.ops import kernel_io as kio  # noqa: E402

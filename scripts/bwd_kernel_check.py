@@ -14,16 +14,16 @@ the launch's four kernels from ``torch.profiler`` (mean of 5 launches).
 """
 
 import os
-import re
 import subprocess
 import sys
 
 import numpy as np
 import torch
-from torch.profiler import ProfilerActivity, profile
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
+from kernel_check_util import cuda_ms, kernel_times, ptxas_report  # noqa: E402
 from diffudf_tpu_torch.fields.siren import (  # noqa: E402
     SirenSpec, flatten_params, init_siren, params_from_jax)
 from diffudf_tpu_torch.ops import vg, vgh  # noqa: E402
@@ -32,43 +32,6 @@ HIDDEN = (256,) * 8
 # (name, wrapper, plain version, library builder, rows, cotangent columns, R)
 KERNELS = (("K2", vgh.vgh_bwd, vgh.vgh_bwd_reference, vgh.build_bwd, 9990, 16, 10),
            ("K3b", vg.vg_bwd, vg.vg_bwd_reference, vg.build, 19980, 8, 4))
-
-
-def ptxas_report(lib):
-    """The kernels and register lines of a library's build log."""
-    with open(lib[:-3] + ".log") as fh:
-        for line in fh:
-            entry = re.search(r"entry function '.*?\d([a-z_]+_kernel)(ILi(\d+)ELi(\d+)E)?", line)
-            if entry:
-                print(f"  {entry.group(1)}" + (f"<{entry.group(3)}, {entry.group(4)}>"
-                                              if entry.group(2) else ""))
-            elif "registers" in line or "spill" in line:
-                print(f"    {line.strip()}")
-
-
-def cuda_ms(fn, reps=10):
-    fn()
-    times = []
-    for _ in range(reps):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return float(np.median(times))
-
-
-def kernel_times(fn, reps=5):
-    """{kernel name: mean device microseconds} over reps calls of fn."""
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    return {ev.key.split("(")[0].split("::")[-1]: ev.device_time_total / ev.count
-            for ev in prof.key_averages() if "dudf" in ev.key}
 
 
 def main():

@@ -53,8 +53,8 @@ sys.path.insert(0, REPO)
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 import chip_smoke  # noqa: E402
-from bwd_kernel_check import cuda_ms  # noqa: E402
-from fwd_kernel_check import build, new_forward, old_forward  # noqa: E402
+from fwd_kernel_check import new_forward, old_forward  # noqa: E402
+from kernel_check_util import build, cuda_ms  # noqa: E402
 from diffudf_tpu_torch.fields.siren import SirenSpec  # noqa: E402
 from diffudf_tpu_torch.ops import kernel_io as kio  # noqa: E402
 from diffudf_tpu_torch.ops import vgh  # noqa: E402

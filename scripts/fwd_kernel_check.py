@@ -33,7 +33,6 @@ Copies are built into the port's ignored build directory.
 import argparse
 import ctypes
 import os
-import shutil
 import subprocess
 import sys
 
@@ -44,10 +43,9 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
-from bwd_kernel_check import cuda_ms, kernel_times, ptxas_report  # noqa: E402
+from kernel_check_util import build, cuda_ms, kernel_times, ptxas_report  # noqa: E402
 from diffudf_tpu_torch.fields.siren import (  # noqa: E402
     SirenSpec, flatten_params, init_siren, params_from_jax)
-from diffudf_tpu_torch.native.build import BUILD_DIR  # noqa: E402
 from diffudf_tpu_torch.ops import kernel_io as kio  # noqa: E402
 from diffudf_tpu_torch.ops import vg, vgh  # noqa: E402
 
@@ -70,37 +68,6 @@ NO_PRODUCTS = (("  for (int p = 0; p < kp; ++p) {\n", "  for (int p = 0; p < 0 *
 FMA_NO_PRODUCTS = (("  for (int c = 0; c < n_chunks; ++c) {\n",
                     "  for (int c = 0; c < 0 * n_chunks; ++c) {\n"),)
 K1_TF32X3 = (("Product::kFp32>(", "Product::kTf32x3>("),)
-
-
-def build(tag, csrc, main, patches=(), cmd=None):
-    """The library of ``csrc/main`` built from copies of every source in
-    ``csrc``, each patch applied where its text is, by ``cmd`` (by default
-    this tree's command for ``main``); -> (the CDLL, its path)."""
-    src_dir = os.path.join(BUILD_DIR, "check", tag)
-    shutil.rmtree(src_dir, ignore_errors=True)
-    shutil.copytree(csrc, src_dir)
-    for old, new in patches:
-        hits = 0
-        for name in os.listdir(src_dir):
-            path = os.path.join(src_dir, name)
-            with open(path) as fh:
-                text = fh.read()
-            if old in text:
-                hits += 1
-                with open(path, "w") as fh:
-                    fh.write(text.replace(old, new))
-        if not hits:
-            raise RuntimeError(f"{tag}: no source holds {old[:60]!r}")
-    cmd = list(cmd or kio.nvcc_command(main))
-    cmd[cmd.index(kio.CSRC)] = src_dir
-    out = os.path.join(src_dir, main.replace(".cu", ".so"))
-    proc = subprocess.run(cmd + ["-o", out, os.path.join(src_dir, main)], capture_output=True,
-                          text=True)
-    if proc.returncode:
-        raise RuntimeError(f"{tag}: build failed\n{proc.stderr}")
-    with open(out[:-3] + ".log", "w") as fh:
-        fh.write(proc.stdout + proc.stderr)
-    return ctypes.CDLL(out), out
 
 
 def new_forward(fn, tile, cols, tf32):

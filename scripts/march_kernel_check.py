@@ -3,6 +3,7 @@
 on one GPU:
 
     python scripts/march_kernel_check.py [--parent DIR] [--ablate]
+        [--k5-variants [NAME ...]] [--k5-rounds N]
 
 Builds both libraries and prints their ptxas reports.  K4, on a random-init
 8x256 SIREN with x uniform in the cube: in both modes at the march's
@@ -29,12 +30,13 @@ for bit and timed in turns at the s1 step's shapes, and its K2 and K3b
 k loop ("no products": what the first layer, the staging, the
 activations, the head and the barriers cost); it gives no right result.
 
-``--k5-variants``: K5 built from patched copies (queries a thread, threads
-a CTA, points a group, the inner loop's unrolling; and, for timing alone,
-the min replaced by an add or the rank cut to two FMAs), each timed in
-turns with this tree's K5; the SM clock and power that ``nvidia-smi``
-reads during three seconds of K5 launches; and the SASS opcode counts of
-K5's scan kernel (``cuobjdump -sass``).
+``--k5-variants [NAME ...]``: K5 built from patched copies (queries a
+thread, threads a CTA, points a group, the inner loop's unrolling; and,
+for timing alone, the min replaced by an add or the rank cut to two FMAs),
+those named or all, each timed in turns with this tree's K5 (N rounds of
+variant, this, this, variant; the mean of each side); the SM clock and
+power that ``nvidia-smi`` reads during three seconds of K5 launches; and
+the SASS opcode counts of K5's scan kernel (``cuobjdump -sass``).
 
 Copies are built into the port's ignored build directory.
 """
@@ -50,13 +52,13 @@ import time
 
 import numpy as np
 import torch
-from torch.profiler import ProfilerActivity, profile
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
+from kernel_check_util import build, cuda_ms, kernel_times, ptxas_report  # noqa: E402
 from diffudf_tpu_torch.fields.siren import SirenSpec, init_siren, params_from_jax  # noqa: E402
-from diffudf_tpu_torch.native.build import BUILD_DIR  # noqa: E402
 from diffudf_tpu_torch.ops import kernel_io as kio  # noqa: E402
 from diffudf_tpu_torch.ops import min_distance, value, vg, vgh  # noqa: E402
 
@@ -66,7 +68,6 @@ K4_TOL = {"f32": 1e-5, "bf16": 2e-3}  # chip_smoke.py's phase 10 gate
 RTOL = 1e-4
 K5_TOL = 1e-4
 MODES = {"f32": None, "bf16": torch.bfloat16}
-PRODUCTS = ("kFp32", "kTf32x3", "kBf16")
 # the parent's value_launch (x, n, w1, b1, wh, bh, n_mm, wl, bl, w0, ww, h,
 # mixed, out, stream) and min_distance_launch (q, nq, cloud, m, out, stream)
 P = ctypes.c_void_p
@@ -78,84 +79,16 @@ NO_PRODUCTS = (("  for (int p = 0; p < kp; ++p) {\n    cp_async_wait<kBfRing - 1
 MIN = "gmin[k] = fminf(gmin[k], rank(p, ax[k], ay[k], az[k]));"
 RANK = "return __fmaf_rn(ax, c.x, __fmaf_rn(ay, c.y, __fmaf_rn(az, c.z, c.w)));"
 K5_VARIANTS = {
-    "4 queries a thread": (("constexpr int kQPT = 8;", "constexpr int kQPT = 4;"),),
-    "16 queries a thread": (("constexpr int kQPT = 8;", "constexpr int kQPT = 16;"),),
-    "128 threads a CTA": (("constexpr int kThreads = 256;", "constexpr int kThreads = 128;"),),
+    "8 queries a thread, 256 threads a CTA": (
+        ("constexpr int kQPT = 4;", "constexpr int kQPT = 8;"),
+        ("constexpr int kThreads = 512;", "constexpr int kThreads = 256;")),
+    "256 threads a CTA": (("constexpr int kThreads = 512;", "constexpr int kThreads = 256;"),),
+    "128 threads a CTA": (("constexpr int kThreads = 512;", "constexpr int kThreads = 128;"),),
     "groups of 32": (("constexpr int kGroup = 64;", "constexpr int kGroup = 32;"),),
     "group loop unrolled whole": (("#pragma unroll 16\n", "#pragma unroll\n"),),
     "add for min (timing only)": ((MIN, "gmin[k] = gmin[k] + rank(p, ax[k], ay[k], az[k]);"),),
     "two-FMA rank (timing only)": ((RANK, "return __fmaf_rn(ax, c.x, __fmaf_rn(ay, c.y, c.w));"),),
 }
-
-
-def ptxas_report(log):
-    with open(log) as fh:
-        for line in fh:
-            entry = re.search(r"entry function '.*?\d([a-z_]+_kernel)"
-                              r"(ILi(\d+)ELi(\d+)E(LN\w*?ProductE(\d))?)?", line)
-            if entry:
-                args = f"<{entry.group(3)}, {entry.group(4)}" if entry.group(2) else ""
-                if entry.group(6):
-                    args += f", {PRODUCTS[int(entry.group(6))]}"
-                print(f"  {entry.group(1)}{args}{'>' if args else ''}")
-            elif "registers" in line or "spill" in line:
-                print(f"    {line.strip()}")
-
-
-def build(tag, csrc, main, patches=()):
-    """The library of ``csrc/main`` built from a copy of ``csrc`` with the
-    patches applied, by this tree's command for ``main``; -> (CDLL, log)."""
-    src_dir = os.path.join(BUILD_DIR, "check", tag)
-    shutil.rmtree(src_dir, ignore_errors=True)
-    shutil.copytree(csrc, src_dir)
-    for old, new in patches:
-        hits = 0
-        for name in os.listdir(src_dir):
-            path = os.path.join(src_dir, name)
-            with open(path) as fh:
-                text = fh.read()
-            if old in text:
-                hits += 1
-                with open(path, "w") as fh:
-                    fh.write(text.replace(old, new))
-        if not hits:
-            raise RuntimeError(f"{tag}: no source holds {old[:60]!r}")
-    cmd = list(kio.nvcc_command(main))
-    cmd[cmd.index(kio.CSRC)] = src_dir
-    out = os.path.join(src_dir, main.replace(".cu", ".so"))
-    proc = subprocess.run(cmd + ["-o", out, os.path.join(src_dir, main)], capture_output=True,
-                          text=True)
-    if proc.returncode:
-        raise RuntimeError(f"{tag}: build failed\n{proc.stderr}")
-    with open(out[:-3] + ".log", "w") as fh:
-        fh.write(proc.stdout + proc.stderr)
-    return ctypes.CDLL(out), out[:-3] + ".log"
-
-
-def cuda_ms(fn, reps=20):
-    fn()
-    times = []
-    for _ in range(reps):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return float(np.median(times))
-
-
-def kernel_times(fn, reps=5):
-    """{kernel name: mean device microseconds} of the launches in fn."""
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    return {ev.key.replace("(anonymous namespace)::", "").split("(")[0].split("::")[-1][:40]:
-            ev.device_time_total / ev.count
-            for ev in prof.key_averages() if ev.device_time_total > 0}
 
 
 def sass_counts(lib_path, kernel):
@@ -255,7 +188,10 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", help="a directory holding another commit's csrc")
     ap.add_argument("--ablate", action="store_true")
-    ap.add_argument("--k5-variants", action="store_true")
+    ap.add_argument("--k5-variants", nargs="*", metavar="NAME",
+                    help="time K5's variants (those named, or all)")
+    ap.add_argument("--k5-rounds", type=int, default=1,
+                    help="rounds of variant / this / this / variant")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("march_kernel_check: needs a CUDA device")
@@ -264,7 +200,7 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     for name, lib in (("K4", value.build()), ("K5", min_distance.build())):
         print(f"{name} build:")
-        ptxas_report(lib[:-3] + ".log")
+        ptxas_report(lib)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     spec = SirenSpec(hidden=HIDDEN)
     params = params_from_jax(init_siren(spec, np.random.default_rng(0)), "cuda")
@@ -274,9 +210,9 @@ def main():
     old = None
     if args.parent:
         csrc = os.path.join(args.parent, "diffudf_tpu_torch", "csrc")
-        old_lib, log = build("parent_value", csrc, "value.cu")
+        old_lib, path = build("parent_value", csrc, "value.cu")
         print("parent K4 build:")
-        ptxas_report(log)
+        ptxas_report(path)
         old = old_value(old_lib)
 
     for mode, dt in MODES.items():
@@ -290,7 +226,7 @@ def main():
             worst = float(((got - want).abs() / (K4_TOL[mode] + RTOL * want.abs())).max())
             plan = kio.value_plan(spec, n, dt is not None, sms)
             launch = lambda: this(params, spec, xb, dt, weights)  # noqa: E731
-            ms = cuda_ms(launch)
+            ms = cuda_ms(launch, 20)
             print(f"K4 {mode} at {n} points: worst err/limit {worst:.3f}, max |K4 - plain| "
                   f"{float((got - want).abs().max()):.3e}, bits as in the 65,536-point launch "
                   f"{torch.equal(got, full[:n])}; tile {plan.tile}, {plan.grid} CTAs, W from L2 "
@@ -300,21 +236,21 @@ def main():
                   flush=True)
             if old is not None:
                 fns = (lambda: old(params, spec, xb, dt), launch)
-                times = [cuda_ms(fns[i]) for i in (0, 1, 1, 0)]
+                times = [cuda_ms(fns[i], 20) for i in (0, 1, 1, 0)]
                 same = float((old(params, spec, xb, dt) - got).abs().max())
                 print(f"  parent / this / this / parent: "
                       + " / ".join(f"{t:.4f}" for t in times)
                       + f" ms (medians of 20); max |parent - this| {same:.3e}", flush=True)
 
     if args.ablate:
-        lib, log = build("value_no_products", os.path.join(REPO, "diffudf_tpu_torch", "csrc"),
+        lib, path = build("value_no_products", os.path.join(REPO, "diffudf_tpu_torch", "csrc"),
                          "value.cu", NO_PRODUCTS)
         run = new_value(lib)
         weights = value.prepare(params, spec, compute_dtype=torch.bfloat16)
         for n in BUCKETS:
             xb = x[:n].contiguous()
             print(f"K4 bf16 no products at {n} points: "
-                  f"{cuda_ms(lambda: run(params, spec, xb, torch.bfloat16, weights)):.4f} ms "
+                  f"{cuda_ms(lambda: run(params, spec, xb, torch.bfloat16, weights), 20):.4f} ms "
                   "(median of 20)", flush=True)
 
     q, cloud = torus_case(np.random.default_rng(2))
@@ -325,10 +261,10 @@ def main():
     launch = lambda: min_distance.min_distance(q, cloud)  # noqa: E731
     print(f"K5 at {len(q)} x {len(cloud)}: max |K5 - plain| {float((got - want).abs().max()):.3e}, "
           f"max |K5 - float64| {float((got.double() - exact).abs().max()):.3e} (limit {K5_TOL}); "
-          f"bit-reproducible {torch.equal(got, launch())}; {cuda_ms(launch):.4f} ms (median of "
+          f"bit-reproducible {torch.equal(got, launch())}; {cuda_ms(launch, 20):.4f} ms (median of "
           f"20); device us: " + ", ".join(f"{k} {v:.1f}" for k, v in kernel_times(launch).items()),
           flush=True)
-    if args.k5_variants:
+    if args.k5_variants is not None:
         lib_path = min_distance.build()
         print("K5 scan kernel SASS opcodes: " + str(sass_counts(lib_path, "min_distance_kernel")))
         samples, ms = clocks_during(launch)
@@ -336,7 +272,9 @@ def main():
               f"clocks.max.sm, power.draw, temperature: {samples}", flush=True)
         work = torch.empty(min_distance.workspace_floats(len(cloud), 1024), device="cuda")
         for tag, patches in K5_VARIANTS.items():
-            lib, log = build("k5_" + re.sub(r"\W+", "_", tag), os.path.join(REPO, "diffudf_tpu_torch",
+            if args.k5_variants and tag not in args.k5_variants:
+                continue
+            lib, path = build("k5_" + re.sub(r"\W+", "_", tag), os.path.join(REPO, "diffudf_tpu_torch",
                                                                          "csrc"),
                              "min_distance.cu", patches)
             fn = lib.min_distance_launch
@@ -349,17 +287,20 @@ def main():
                 if rc:
                     raise RuntimeError(f"launch failed with CUDA error {rc}")
                 return out
-            regs = re.findall(r"Used (\d+) registers", open(log).read())
+            regs = re.findall(r"Used (\d+) registers", open(path[:-3] + ".log").read())
             same = torch.equal(variant(), got)
-            times = [cuda_ms(f) for f in (variant, launch, launch, variant)]
-            print(f"K5 variant '{tag}' ({regs} registers): bits as this tree's {same}; variant / "
-                  "this / this / variant: " + " / ".join(f"{t:.4f}" for t in times)
-                  + " ms (medians of 20)", flush=True)
+            times = [cuda_ms(f, 20) for _ in range(args.k5_rounds)
+                     for f in (variant, launch, launch, variant)]
+            mean = [float(np.mean(times[i::4] + times[3 - i::4])) for i in (0, 1)]
+            print(f"K5 variant '{tag}' ({regs} registers): bits as this tree's {same}; "
+                  f"{args.k5_rounds} rounds of variant / this / this / variant: "
+                  + " / ".join(f"{t:.4f}" for t in times) + " ms (medians of 20); means: "
+                  f"variant {mean[0]:.4f}, this {mean[1]:.4f} ms", flush=True)
 
     if args.parent:
-        old_lib, log = build("parent_min_distance", csrc, "min_distance.cu")
+        old_lib, path = build("parent_min_distance", csrc, "min_distance.cu")
         print("parent K5 build:")
-        ptxas_report(log)
+        ptxas_report(path)
         fn = old_lib.min_distance_launch
         fn.argtypes, fn.restype = OLD_K5_ARGTYPES, ctypes.c_int
 
@@ -371,7 +312,7 @@ def main():
                 raise RuntimeError(f"launch failed with CUDA error {rc}")
             return out
         print(f"  the two trees' K5 bit-identical {torch.equal(old_k5(), got)}; parent / this / "
-              "this / parent: " + " / ".join(f"{cuda_ms(f):.4f}" for f in
+              "this / parent: " + " / ".join(f"{cuda_ms(f, 20):.4f}" for f in
                                              (old_k5, launch, launch, old_k5))
               + " ms (medians of 20)", flush=True)
 
@@ -390,7 +331,7 @@ def main():
                     return out
                 fns.append(run)
             same = torch.equal(fns[0](), fns[1]())
-            times = [cuda_ms(fns[i]) for i in (0, 1, 1, 0)]
+            times = [cuda_ms(fns[i], 20) for i in (0, 1, 1, 0)]
             print(f"{name} at {n} points: the two trees bit-identical {same}; parent / this / "
                   "this / parent: " + " / ".join(f"{t:.4f}" for t in times)
                   + " ms (medians of 20)", flush=True)
