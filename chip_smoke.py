@@ -4,12 +4,14 @@
     python3 chip_smoke.py
 
 Drives ``diffudf_tpu_torch`` alone (no JAX, no ``diffudf_tpu``) through its
-four paths: mesh extraction, ``generate_mc`` at N=256 with both MeshUDF and
-CAP on an 8x256 SIREN fitted in process to a sphere; training, ``cli.train``
-on the point-cloud torus recipe (8x256, batch 30,000, 3000 epochs) with its
+paths: mesh extraction, ``generate_mc`` at N=256 with both MeshUDF and CAP
+on an 8x256 SIREN fitted in process to a sphere; training, ``cli.train`` on
+the point-cloud torus recipe (8x256, batch 30,000, 3000 epochs) with its
 slice figure and the Chamfer evaluation of its meshes; rendering,
-``cli.generate_st`` at 720x720 with 3 passes on the trained torus; and the
-slice figures of ``cli.generate_df`` at width 512 on the trained torus.  It
+``cli.generate_st`` at 720x720 with 3 passes on the trained torus; the
+slice figures of ``cli.generate_df`` at width 512 on the trained torus;
+mesh-input training, ``cli.train`` on the trefoil's mesh with the same
+recipe; and the GT-mesh render of ``cli.generate_st``.  It
 holds every kernel of those paths against its plain torch version: K1 (f,
 grad f, Hessian), K2 (its VJP), K3a (f, grad f), K3b (its VJP), K4 (f
 alone, the march's value) and K5 (the nearest cloud point's distance).
@@ -37,10 +39,13 @@ Phases, in order, each printing its seconds:
                 slice gave K1; then their times and K1's bounds;
   7. train    — preprocesses data/demo/torus.obj (100k points) and runs
                 ``diffudf_tpu_torch.cli.train.main`` on the recipe of
-                results/results_demo_pc.csv; gates: K1, K2, K3a and K3b
+                results/results_demo_pc.csv, its oracle build overlapped
+                with the first epochs; gates: K1, K2, K3a and K3b
                 each launched once per s1 step (K1 once more for the slice
-                figure and once by the final extraction), K5 once (the
-                figure's plane distances), both figure PNGs with 512x512
+                figure and once by the final extraction), K5 once for the
+                figure's plane distances and once a step of the epochs the
+                bootstrap oracle (the exact nearest-point sweep) served
+                before the swap, both figure PNGs with 512x512
                 panels, finite losses, the s1 loss of the last 50 s1 epochs
                 below that of the first 50, and the Chamfer-L1 of both final
                 meshes against the 100k-point cloud within the torus
@@ -93,7 +98,29 @@ Phases, in order, each printing its seconds:
                 of K5, its plain version and chunked ``torch.cdist`` +
                 ``amin`` beside the bound and K5's issue floor (four issue
                 slots a pair); then K1 at the figure's 262,144 points beside
-                its bounds.
+                its bounds;
+ 13. mesh train — preprocesses data/demo/trefoil.obj (100k points, 24,576
+                triangles) and runs ``cli.train.main`` on the same recipe in
+                mesh mode (``onlyPCloud`` false), the candidate-grid build
+                on a host thread while the first epochs train on the exact
+                bootstrap sweep; gates: K1, K2, K3a and K3b as in phase 7,
+                K5 never (the figure reads the triangle table), the table
+                swapped in, both figure PNGs, finite losses, the s1 loss
+                falling, and the Chamfer-L1 of both meshes within the
+                trefoil protocol floor; then the table oracle against the
+                brute sweep on the 19,980 off-surface queries of a batch:
+                within 1e-5 on the near-surface rows and on every row the
+                grid's guarantee covers (its cell's k-th lower bound from
+                the centre, less the half-diagonal, above the row's
+                distance), the other rows' errors printed; and the
+                CUDA-event times of both oracles a step;
+                prints s1 and s2 steps/s beside phase 7's and the JAX
+                package's trefoil row;
+ 14. gt render — ``cli.generate_st.main`` with ``gt_mode`` "gt" on the
+                trefoil's normalised mesh with configs/st_cfg.json's camera
+                and light, 720x720, one pass (the exact triangle distance,
+                no kernel); gates: hits on 1-99% of the valid rays, finite
+                colours, a PNG file.
 
 Then a ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}`` line.
 Any failed phase raises, and the script exits non-zero without those two
@@ -173,6 +200,13 @@ PEAK_BF16_FLOPS = 989e12  # dense bf16 tensor rate, H100 SXM at 700 W
 # near-tied neighbours are taken in another order).
 FIGURE_WIDTH = 512
 K5_TOL = 1e-4
+# Phase 13: the trefoil protocol floor (results/protocol_floors_demo.json);
+# the JAX package's mesh-input trefoil row (results/results_demo.csv, a
+# record, not a gate); the table oracle against the brute sweep within the
+# tolerance of the JAX package's tests/test_data.py::test_candidate_grid_*.
+MAX_TREFOIL_CHAMFER_L1 = 0.012503
+JAX_TREFOIL_L1 = {"CAP": 0.010658, "MU": 0.010655}
+MESH_TOL = 1e-5
 CHAMFER_RTOL = {"L1": 1e-6, "L2": 1e-4, "NC": 1e-4}
 
 
@@ -582,24 +616,49 @@ def train_phase(tmp):
                 "K3b": vg.bwd_launches, "K5": min_distance.launches}
 
     n_s1, n_s2 = stats["s1_steps"], stats["s2_steps"]
-    s1_rate, s2_rate = n_s1 / stats["s1_s"], n_s2 / stats["s2_s"]
-    print(f"[train] oracle {stats['oracle_s']:.2f} s, s1 {stats['s1_s']:.2f} s for {n_s1} "
-          f"steps ({s1_rate:.2f} steps/s), s2 {stats['s2_s']:.2f} s for {n_s2} steps "
-          f"({s2_rate:.2f} steps/s), all steps {(n_s1 + n_s2) / stats['train_s']:.2f} steps/s "
-          f"(the original DiffUDF: {BASELINE_STEPS_PER_S} steps/s); pipeline "
-          f"{pipeline_s:.2f} s; extraction {json.dumps(stats['mesh'])}")
+    s1_rate, s2_rate = rates_report(stats, pipeline_s, "[train]")
     print(f"[train] kernel launches in this run: {launches}; K5 queries {min_distance.queries}")
     print(f"[train] slice figure at width {train.SLICE_WIDTH}: {json.dumps(stats['figure'])}")
     extraction_k1 = 1 if stats["mesh"]["dirs_points"] > 0 else 0
-    want = {"K1": n_s1 + 1 + extraction_k1, "K2": n_s1, "K3a": n_s1, "K3b": n_s1, "K5": 1}
+    boot_steps = stats["bootstrap_epochs"] * RECIPE["batches_per_epoch"]
+    want = {"K1": n_s1 + 1 + extraction_k1, "K2": n_s1, "K3a": n_s1, "K3b": n_s1,
+            "K5": 1 + boot_steps}
     if launches != want:
         raise AssertionError(f"launches {launches} != {want}: once per s1 step, K1 once more "
                              f"for the slice figure and {extraction_k1} by the final "
-                             f"extraction, K5 once for the figure")
+                             f"extraction, K5 once for the figure and once per step of the "
+                             f"{stats['bootstrap_epochs']} bootstrap epochs")
     check_figure(os.path.join(tmp, "runs", "torus", "reconstructions"), train.SLICE_WIDTH,
                  "[train]")
+    check_losses(os.path.join(tmp, "runs", "torus", "losses.csv"), "[train]")
+    chamfer = check_chamfer(meshes, cfg["dataset"], MAX_TORUS_CHAMFER_L1, "[train]")
+    scores = score_meshes(meshes, load_point_cloud(cfg["dataset"] + "_pc.ply"), chamfer)
+    params = [{k: v.detach().contiguous() for k, v in layer.items()}
+              for layer in state.best_params]
+    return {"params": params, "cfg_path": cfg_path, "launches": launches,
+            "s1_steps_per_s": s1_rate, "s2_steps_per_s": s2_rate, "chamfer": chamfer,
+            "scores": scores, "data_dir": data_dir, "bootstrap_epochs": stats["bootstrap_epochs"],
+            "swap_epoch": stats["swap_epoch"], "oracle_build_s": stats["oracle_build_s"]}
 
-    logs = losses_table(os.path.join(tmp, "runs", "torus", "losses.csv"))
+
+def rates_report(stats, pipeline_s, tag):
+    """Print a cli.train run's oracle, swap and step rates; -> s1 and s2
+    steps/s."""
+    n_s1, n_s2 = stats["s1_steps"], stats["s2_steps"]
+    s1_rate, s2_rate = n_s1 / stats["s1_s"], n_s2 / stats["s2_s"]
+    print(f"{tag} oracle {stats['oracle_s']:.2f} s, its build {stats['oracle_build_s']:.2f} s "
+          f"(swapped in at epoch {stats['swap_epoch']}: {stats['bootstrap_epochs']} bootstrap "
+          f"epochs), s1 {stats['s1_s']:.2f} s for {n_s1} steps ({s1_rate:.2f} steps/s), s2 "
+          f"{stats['s2_s']:.2f} s for {n_s2} steps ({s2_rate:.2f} steps/s), all steps "
+          f"{(n_s1 + n_s2) / stats['train_s']:.2f} steps/s (the original DiffUDF: "
+          f"{BASELINE_STEPS_PER_S} steps/s); pipeline {pipeline_s:.2f} s; extraction "
+          f"{json.dumps(stats['mesh'])}")
+    return s1_rate, s2_rate
+
+
+def check_losses(path, tag):
+    """losses.csv holds every epoch, finite, and the s1 loss falls."""
+    logs = losses_table(path)
     total = logs["total"]
     if len(total) != RECIPE["num_epochs"] or not np.isfinite(total).all():
         raise AssertionError("losses.csv lacks epochs or holds a non-finite total")
@@ -608,30 +667,31 @@ def train_phase(tmp):
             raise AssertionError(f"non-finite {name} in losses.csv")
     s1 = total[:RECIPE["s1_epochs"]]
     first, last = float(s1[:50].mean()), float(s1[-50:].mean())
-    print(f"[train] s1 total loss: first 50 epochs {first:.3f}, last 50 {last:.3f}; "
+    print(f"{tag} s1 total loss: first 50 epochs {first:.3f}, last 50 {last:.3f}; "
           f"s2 total loss: last 50 {float(total[-50:].mean()):.3f}")
     if not last < first:
         raise AssertionError(f"the s1 loss did not fall: {first} -> {last}")
 
-    cloud = load_point_cloud(cfg["dataset"] + "_pc.ply").points
+
+def check_chamfer(meshes, dataset, bound, tag):
+    """The Chamfer-L1 of both final meshes' vertices against the dataset's
+    100k-point cloud, each within ``bound``; -> {name: Chamfer-L1}."""
+    from diffudf_tpu_torch.data.mesh_io import load_point_cloud
+
+    cloud = load_point_cloud(dataset + "_pc.ply").points
     chamfer = {}
     for name, m in zip(("MU", "CAP"), meshes):
         v = np.asarray(m.vertices, np.float64)
         if len(m.faces) == 0 or not np.isfinite(v).all():
             raise AssertionError(f"{name} mesh is empty or not finite")
         chamfer[name] = chamfer_l1(v, cloud)
-    print(f"[train] Chamfer-L1 of the mesh vertices vs the 100k-point cloud: "
-          f"MU {chamfer['MU']:.6f}, CAP {chamfer['CAP']:.6f} (bound {MAX_TORUS_CHAMFER_L1}; "
+    print(f"{tag} Chamfer-L1 of the mesh vertices vs the 100k-point cloud: "
+          f"MU {chamfer['MU']:.6f}, CAP {chamfer['CAP']:.6f} (bound {bound}; "
           f"faces MU {len(meshes[0].faces)}, CAP {len(meshes[1].faces)})")
     for name, c in chamfer.items():
-        if not c <= MAX_TORUS_CHAMFER_L1:
-            raise AssertionError(f"{name} Chamfer-L1 {c} > {MAX_TORUS_CHAMFER_L1}")
-    scores = score_meshes(meshes, load_point_cloud(cfg["dataset"] + "_pc.ply"), chamfer)
-    params = [{k: v.detach().contiguous() for k, v in layer.items()}
-              for layer in state.best_params]
-    return {"params": params, "cfg_path": cfg_path, "launches": launches,
-            "s1_steps_per_s": s1_rate, "s2_steps_per_s": s2_rate, "chamfer": chamfer,
-            "scores": scores, "data_dir": data_dir}
+        if not c <= bound:
+            raise AssertionError(f"{name} Chamfer-L1 {c} > {bound}")
+    return chamfer
 
 
 def png_size(path):
@@ -705,7 +765,7 @@ def train_kernel_phase(params, cfg_path):
 
     cfg = TrainConfig.from_json(cfg_path)
     spec = cfg.network.to_spec()
-    sampler, _ = train.build_sampler(cfg)  # the run's oracle cache: no rebuild
+    sampler, _, _ = train.build_sampler(cfg)  # the run's oracle cache: no rebuild
     pts, nrm, sdf = sampler.sample(torch.Generator(device="cuda").manual_seed(7))
     n_on = sampler.sizes.on_surface
     surf, off = pts[:n_on].contiguous(), pts[n_on:].contiguous()
@@ -1116,6 +1176,155 @@ def distance_kernel_phase(data_dir, params):
             "k1_figure": {"points": nq, "ms": k1_ms, **k1}}
 
 
+def cell_guarantee(tri_table):
+    """(g^3,) per cell of the triangle table: the largest bounding-sphere
+    lower bound ``|centre - centroid| - radius`` over its k candidates, less
+    the cell's half-diagonal.  The grid holds the k best lower bounds of
+    every triangle from the cell centre, so a query of the cell nearer than
+    this to the mesh has its nearest triangle among the candidates."""
+    from diffudf_tpu_torch.data import mesh_distance as md
+
+    g, lo, hi = md.CAND_GRID_G, md.CAND_GRID_LO, md.CAND_GRID_HI
+    tv = tri_table.view(tri_table.shape[0], -1, 3, 3)
+    cen = tv.mean(dim=2)
+    rad = torch.sqrt(((tv - cen[:, :, None]) ** 2).sum(-1).max(-1).values)
+    centres = torch.as_tensor(md._cell_centers(g, lo, hi), device=tri_table.device)
+    lb = (centres[:, None, :] - cen).norm(dim=-1) - rad
+    return lb.max(dim=1).values - (hi - lo) / g * 3 ** 0.5 / 2
+
+
+@phase("mesh train")
+def mesh_train_phase(tmp, pc_run):
+    """The trefoil recipe in mesh mode through cli.train.main, the oracle
+    build overlapped; then the table oracle against the brute sweep on a
+    batch of the run's sampler, and both oracles' times a step."""
+    from diffudf_tpu_torch.cli import preprocess, train
+    from diffudf_tpu_torch.config import TrainConfig
+    from diffudf_tpu_torch.data import mesh_distance as md
+    from diffudf_tpu_torch.data.mesh_io import load_mesh
+    from diffudf_tpu_torch.data.sampling import TrainingSampler
+    from diffudf_tpu_torch.ops import min_distance, vg, vgh
+
+    data_dir = os.path.join(tmp, "mesh")
+    t0 = time.perf_counter()
+    preprocess.preprocess_mesh(data_dir, os.path.join(REPO, "data", "demo", "trefoil.obj"), 100000)
+    print(f"[mesh-train] preprocess (100k points): {time.perf_counter() - t0:.2f} s", flush=True)
+    cfg = dict(RECIPE, onlyPCloud=False, dataset=os.path.join(data_dir, "trefoil"),
+               experiment_name="trefoil", checkpoint_path=os.path.join(tmp, "runs"))
+    cfg_path = os.path.join(tmp, "mesh_train_cfg.json")
+    with open(cfg_path, "w") as fh:
+        json.dump(cfg, fh)
+
+    vgh.launches = vgh.bwd_launches = vg.launches = vg.bwd_launches = 0
+    min_distance.launches = 0
+    (pipeline_s, meshes, _), stats = train.main([cfg_path])
+    launches = {"K1": vgh.launches, "K2": vgh.bwd_launches, "K3a": vg.launches,
+                "K3b": vg.bwd_launches, "K5": min_distance.launches}
+    n_s1 = stats["s1_steps"]
+    s1_rate, s2_rate = rates_report(stats, pipeline_s, "[mesh-train]")
+    print(f"[mesh-train] s1 {s1_rate:.2f} and s2 {s2_rate:.2f} steps/s against phase 7's point-"
+          f"cloud {pc_run['s1_steps_per_s']:.2f} and {pc_run['s2_steps_per_s']:.2f}")
+    print(f"[mesh-train] kernel launches in this run: {launches}; slice figure at width "
+          f"{train.SLICE_WIDTH}: {json.dumps(stats['figure'])}")
+    extraction_k1 = 1 if stats["mesh"]["dirs_points"] > 0 else 0
+    want = {"K1": n_s1 + 1 + extraction_k1, "K2": n_s1, "K3a": n_s1, "K3b": n_s1, "K5": 0}
+    if launches != want:
+        raise AssertionError(f"launches {launches} != {want}: once per s1 step, K1 once more "
+                             f"for the slice figure and {extraction_k1} by the final "
+                             f"extraction, K5 never (the figure reads the triangle table)")
+    if stats["swap_epoch"] is None:
+        raise AssertionError("the triangle table was never swapped in")
+    check_figure(os.path.join(tmp, "runs", "trefoil", "reconstructions"), train.SLICE_WIDTH,
+                 "[mesh-train]")
+    check_losses(os.path.join(tmp, "runs", "trefoil", "losses.csv"), "[mesh-train]")
+    chamfer = check_chamfer(meshes, cfg["dataset"], MAX_TREFOIL_CHAMFER_L1, "[mesh-train]")
+    print(f"[mesh-train] the JAX package's trefoil row (results/results_demo.csv, a record): "
+          f"CAP {JAX_TREFOIL_L1['CAP']}, MU {JAX_TREFOIL_L1['MU']}")
+
+    # the table oracle against the brute sweep on a batch of the run's
+    # sampler (the run's cache: no rebuild), and each oracle's time a step
+    tcfg = TrainConfig.from_json(cfg_path)
+    table_sampler, pc, _ = train.build_sampler(tcfg)
+    mesh = load_mesh(cfg["dataset"] + "_t.obj")
+    boot = TrainingSampler.from_mesh_bootstrap(pc.points, pc.normals, mesh.vertices[mesh.faces],
+                                               tcfg.batch_size, tcfg.sampling_percentiles)
+    sz = table_sampler.sizes
+    pts, _, _ = table_sampler.sample(torch.Generator(device="cuda").manual_seed(11))
+    q = pts[sz.on_surface:].contiguous()
+    table = md.point_triangle_distance_table(q, table_sampler.tri_table)
+    brute = md.point_triangle_distance_bootstrap(q, boot.tri_verts)
+    err = (table - brute).abs()
+    # the oracle's guarantee: a query's nearest triangle is among its cell's
+    # candidates when its distance is below the cell's k-th lower bound from
+    # the cell centre minus the half-diagonal
+    certified = brute < cell_guarantee(table_sampler.tri_table)[md._cell_rows(
+        q, md.CAND_GRID_G, md.CAND_GRID_LO, md.CAND_GRID_HI)] - 1e-6
+    near = torch.arange(len(q), device=q.device) >= sz.far
+    checks = {"near-surface rows": err[near], "rows the guarantee covers": err[certified]}
+    print(f"[mesh-train] table oracle vs the brute sweep on the {len(q)} off-surface queries of "
+          f"a batch ({len(boot.tri_verts)} triangles; bound {MESH_TOL}): all rows max "
+          f"{float(err.max()):.3e}, {int((err > MESH_TOL).sum())} above the bound (a record: "
+          f"the grid is exact only where its guarantee covers a row); "
+          + "; ".join(f"{k} ({len(e)}) max {float(e.max()):.3e}" for k, e in checks.items()))
+    for k, e in checks.items():
+        if not float(e.max()) <= MESH_TOL:
+            raise AssertionError(f"the table oracle is {float(e.max())} from the brute sweep on "
+                                 f"the {k}")
+    times = {
+        "table_oracle_ms": cuda_ms(lambda: md.point_triangle_distance_table(
+            q, table_sampler.tri_table), 20),
+        "bootstrap_oracle_ms": cuda_ms(lambda: md.point_triangle_distance_bootstrap(
+            q, boot.tri_verts), 5),
+        "table_sample_ms": cuda_ms(lambda: table_sampler.sample(
+            torch.Generator(device="cuda").manual_seed(12)), 20),
+        "bootstrap_sample_ms": cuda_ms(lambda: boot.sample(
+            torch.Generator(device="cuda").manual_seed(12)), 5),
+    }
+    print(f"[mesh-train] a step's oracle at {len(q)} queries (CUDA-event medians): table "
+          f"{times['table_oracle_ms']:.3f} ms (its sample() {times['table_sample_ms']:.3f} ms), "
+          f"bootstrap sweep {times['bootstrap_oracle_ms']:.3f} ms (its sample() "
+          f"{times['bootstrap_sample_ms']:.3f} ms); table {table_sampler.tri_table.numel() * 4 / 1e6:.1f} MB")
+    return {"launches": launches, "chamfer": chamfer, "s1_steps_per_s": s1_rate,
+            "s2_steps_per_s": s2_rate, "swap_epoch": stats["swap_epoch"],
+            "bootstrap_epochs": stats["bootstrap_epochs"],
+            "oracle_build_s": stats["oracle_build_s"],
+            "table_vs_brute": {"all_max": float(err.max()),
+                               "all_above_tol": int((err > MESH_TOL).sum()),
+                               **{k: float(e.max()) for k, e in checks.items()},
+                               "certified_share": float(certified.float().mean())}, **times,
+            "data_dir": data_dir}
+
+
+@phase("gt render")
+def gt_render_phase(tmp, data_dir):
+    """cli.generate_st.main with gt_mode "gt" on the trefoil's normalised
+    mesh, configs/st_cfg.json's camera and light, 720x720, one pass."""
+    from diffudf_tpu_torch.cli import generate_st
+
+    with open(ST_CONFIG) as fh:
+        rendering = json.load(fh)["rendering_config"]
+    rendering.update(sample_rate=1, output_path=os.path.join(tmp, "trefoil_gt.png"))
+    cfg = {"network_config": {"gt_mode": "gt"},
+           "mesh_path": os.path.join(data_dir, "trefoil_t.obj"),
+           "light_pos": rendering["light_position"], "rendering_config": rendering}
+    cfg_path = os.path.join(tmp, "gt_st_cfg.json")
+    with open(cfg_path, "w") as fh:
+        json.dump(cfg, fh)
+    img, stats = generate_st.main([cfg_path])
+    (p,) = stats["passes"]
+    print(f"[gt-render] {rendering['width']}x{rendering['height']}, one pass: "
+          f"{stats['render_s']:.3f} s, march {p['march_s']:.3f} s, {p['iterations']} iterations, "
+          f"{p['hits']} hits of {p['valid']} valid rays ({p['hits'] / p['valid']:.1%})")
+    if not (p["hits"] > 0 and 0.01 <= p["hits"] / p["valid"] <= 0.99):
+        raise AssertionError(f"{p['hits']} hits of {p['valid']} valid rays")
+    if p["nonfinite"] or img.shape != (rendering["height"], rendering["width"], 3):
+        raise AssertionError(f"{p['nonfinite']} non-finite colour values, image {img.shape}")
+    with open(rendering["output_path"], "rb") as fh:
+        if fh.read(8) != b"\x89PNG\r\n\x1a\n":
+            raise AssertionError("the GT render's output is not a PNG file")
+    return {"render_s": stats["render_s"], **p}
+
+
 KERNELS = {
     "K1": ("vgh", "diffudf_tpu_torch/csrc/vgh.cu", "diffudf_tpu/ops/pallas_vgh.py:55 (_vgh_kernel)"),
     "K2": ("vgh_bwd", "diffudf_tpu_torch/csrc/vgh_bwd.cu",
@@ -1145,6 +1354,8 @@ def main():
         rk = render_kernel_phase(render["cfg"], render["model_path"], render["passes"][0])
         figs = figures_phase(tmp, run["data_dir"])
         dk = distance_kernel_phase(run["data_dir"], run["params"])
+        mesh_run = mesh_train_phase(tmp, run)
+        gt = gt_render_phase(tmp, mesh_run["data_dir"])
     rows = []
     for key, (name, source, replaces) in KERNELS.items():
         row = {"name": name, "route": "cuda", "source": source, "replaces": replaces}
@@ -1156,7 +1367,8 @@ def main():
                        launches_by_path={"generate_mc": k1_mc_launches,
                                          "train": run["launches"]["K1"],
                                          "generate_st": render["launches"]["K1"],
-                                         "generate_df": figs["torus_pc.ply"]["launches"]["K1"]},
+                                         "generate_df": figs["torus_pc.ply"]["launches"]["K1"],
+                                         "train_mesh": mesh_run["launches"]["K1"]},
                        max_abs_err=max(t["max_err"].values()), max_err=t["max_err"],
                        **{k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                             "tensor_bound_ms", "fp32_bound_ms", "bytes_moved",
@@ -1175,7 +1387,8 @@ def main():
             # calls, over query chunks) is timed beside it
             row.update(launches=run["launches"]["K5"],
                        launches_by_path={"train": run["launches"]["K5"],
-                                         "generate_df": figs["torus_pc.ply"]["launches"]["K5"]},
+                                         "generate_df": figs["torus_pc.ply"]["launches"]["K5"],
+                                         "train_mesh": mesh_run["launches"]["K5"]},
                        **{k: dk[k] for k in ("max_abs_err", "witness_max_err",
                                              "expanded_form_max_err", "ms", "plain_ms",
                                              "bound_ms", "bound_by", "issue_floor_ms", "queries",
@@ -1185,10 +1398,14 @@ def main():
             # phase 8's numbers; bound_ms is the 3xTF32 tensor bound, with
             # the FP32 FMA bound and the design's bytes
             row["launches"] = run["launches"][key]
+            row["launches_by_path"] = {"train": run["launches"][key],
+                                       "train_mesh": mesh_run["launches"][key]}
             row.update(tk[key])
         row["library_ms"] = None
         rows.append(row)
-    print(f"[total] {time.perf_counter() - t_start:.2f} s")
+    print(f"[total] {time.perf_counter() - t_start:.2f} s; the mesh-mode training and the GT "
+          f"render: {json.dumps({k: v for k, v in mesh_run.items() if k != 'data_dir'})}, "
+          f"{json.dumps(gt)}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -16,13 +16,17 @@ device, a uniform-width sine SIREN of width a multiple of 32 and at most
 false only to spare a one-shot render the remote TPU compiles of its
 kernels, a cost that does not exist here.
 
+``gt_mode: "gt"`` renders the ground-truth mesh at the top-level
+``mesh_path`` instead of a field (``create_projectional_image_gt``: a sphere
+trace on the exact triangle distance, with the top-level ``light_pos``,
+``max_iter`` and ``surface_eps`` and the float64 host camera), as the JAX
+package does.
+
 The render imports neither PIL nor matplotlib: the curvature colormap is
 the package's own copy of RdYlBu and ``main`` writes the PNG with the
 standard library (``render/png.py``); PIL is imported only to rotate the
-image when ``rotation`` is non-zero.  Not ported: tracing the ground-truth
-mesh (``gt_mode: "gt"``, ``create_projectional_image_gt``), which needs the
-mesh-input oracle, and ``shard_rays`` (several devices); both raise
-NotImplementedError.
+image when ``rotation`` is non-zero.  Not ported: ``shard_rays`` (several
+devices), which raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -34,6 +38,8 @@ import time
 import numpy as np
 import torch
 
+from ..data.mesh_distance import point_triangle_distance, triangles_from_mesh
+from ..data.mesh_io import load_mesh
 from ..fields.siren import SirenSpec
 from ..ops import value as k4
 from ..render.camera import camera_rays_device, cube_entry_points, world_rays
@@ -175,10 +181,61 @@ def create_projectional_image(params, spec: SirenSpec, rays, t0, mask, network_c
     return colors
 
 
-def create_projectional_image_gt(*args, **kwargs):
-    """Tracing the ground-truth mesh distance needs the mesh-input oracle,
-    which this package does not have yet."""
-    raise NotImplementedError("gt_mode 'gt' needs the mesh-input oracle, not ported yet")
+def create_projectional_image_gt(mesh_path, rays, t0, mask, light_position, specular_comp=40,
+                                 surface_eps=1e-3, max_iterations=30, device="cuda", stats=None):
+    """Trace the GT mesh distance field directly (``render_st.py:248-281``)
+    -> (H·W, 3) colours: a sphere trace on the exact distance to the mesh's
+    triangles (:func:`..data.mesh_distance.point_triangle_distance`, on
+    ``device``), then central-difference normals of that distance and Phong
+    shading on the host.  rays, t0 (N, 3) and mask (N,) are host arrays.
+    With a ``stats`` dict, the pass records there its march seconds and
+    iterations, the valid and hit ray counts and the count of non-finite
+    colour values."""
+    mesh = load_mesh(mesh_path)
+    tris = triangles_from_mesh(mesh.vertices, mesh.faces, device=device)
+
+    def distance(x):
+        q = torch.as_tensor(np.asarray(x, np.float32), device=device)
+        return point_triangle_distance(q, tris).cpu().numpy()
+
+    t_start = time.perf_counter()
+    t0 = np.array(t0)
+    active = np.array(mask)
+    hits = np.zeros_like(active)
+    iters = 0
+    for _ in range(max_iterations):
+        if not active.any():
+            break
+        iters += 1
+        d = distance(t0[active])
+        t0[active] += rays[active] * d[:, None]
+        close = d < surface_eps
+        idx = np.flatnonzero(active)
+        hits[idx[close]] = True
+        active[idx[close]] = False
+        out = np.any(np.abs(t0) > 1.3, axis=1)
+        active &= ~out
+    march_s = time.perf_counter() - t_start
+    if hits.sum() == 0:
+        raise ValueError("GT ray tracing did not converge")
+
+    # central-difference normals of the GT field
+    eps = 1e-4
+    pts = t0[hits]
+    grads = []
+    for i in range(3):
+        e = np.zeros(3)
+        e[i] = eps
+        grads.append((distance(pts + e) - distance(pts - e)) / (2 * eps))
+    normals = np.stack(grads, axis=1)
+    normals /= np.maximum(np.linalg.norm(normals, axis=1, keepdims=True), 1e-12)
+    flip = np.sum(normals * rays[hits], axis=1, keepdims=True) > 0
+    normals = np.where(flip, -normals, normals)
+    colors = phong_shading(light_position, specular_comp, hits, t0, normals)
+    if stats is not None:
+        stats.update(march_s=march_s, iterations=iters, valid=int(np.asarray(mask).sum()),
+                     hits=int(hits.sum()), nonfinite=int((~np.isfinite(colors)).sum()))
+    return colors
 
 
 def generate_st(config: dict, device="cuda", stats=None):
@@ -188,24 +245,24 @@ def generate_st(config: dict, device="cuda", stats=None):
     (see :func:`create_projectional_image`)."""
     network_config = config["network_config"]
     rendering = config["rendering_config"]
-    if network_config.get("gt_mode") == "gt":
-        create_projectional_image_gt()
     if rendering.get("shard_rays"):
         raise NotImplementedError("shard_rays (several devices) is not ported")
     W, H = rendering["width"], rendering["height"]
     n_passes = rendering.get("sample_rate", 1)
+    gt = network_config.get("gt_mode") == "gt"
 
     rng = np.random.default_rng(config.get("seed", 0))
     colors = np.zeros((H * W, 3))
-    params = ckpt.load_params(network_config["model_path"], device=device)
-    spec = SirenSpec(
-        hidden=tuple(network_config["hidden_layer_nodes"]),
-        w0=network_config.get("w0", 30),
-        activation=network_config.get("activation", "sine"),
-    )
+    if not gt:
+        params = ckpt.load_params(network_config["model_path"], device=device)
+        spec = SirenSpec(
+            hidden=tuple(network_config["hidden_layer_nodes"]),
+            w0=network_config.get("w0", 30),
+            activation=network_config.get("activation", "sine"),
+        )
     # the float32 device camera by default; the float64 host camera under
-    # "device_camera": false (the golden-parity path)
-    device_camera = rendering.get("device_camera", True)
+    # "device_camera": false (the golden-parity path) and for the GT trace
+    device_camera = rendering.get("device_camera", True) and not gt
     passes = []
     for _ in range(n_passes):
         noise = rng.normal(0.5, 0.35)
@@ -219,8 +276,14 @@ def generate_st(config: dict, device="cuda", stats=None):
             t0, valid = cube_entry_points(rays, rendering["camera_position"],
                                           rendering.get("planes"))
         passes.append({})
-        colors += create_projectional_image(params, spec, rays, t0, valid, network_config,
-                                            rendering, stats=passes[-1])
+        if gt:
+            colors += create_projectional_image_gt(
+                config["mesh_path"], rays, t0, valid, np.asarray(config["light_pos"]),
+                max_iterations=config.get("max_iter", 30),
+                surface_eps=config.get("surface_eps", 1e-3), device=device, stats=passes[-1])
+        else:
+            colors += create_projectional_image(params, spec, rays, t0, valid, network_config,
+                                                rendering, stats=passes[-1])
     if stats is not None:
         stats["passes"] = passes
 

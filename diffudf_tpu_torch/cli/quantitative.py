@@ -10,10 +10,9 @@ point cloud, and append to ``results.csv`` with the reference's columns.
     python -m diffudf_tpu_torch.cli.quantitative <dataset_dir> <out_dir>
         [--config cfg.json] [--no-provenance] [--device cpu]
 
-Point-cloud input only (a directory with a ``_t.obj`` is a mesh-input
-shape, whose oracle is not ported: it raises NotImplementedError), and one
-device: ``--mesh N`` with N > 1 (data parallelism) raises
-NotImplementedError.
+A directory with a ``_t.obj`` trains in mesh mode (the triangle oracle),
+one without in point-cloud mode, as in the JAX package.  One device:
+``--mesh N`` with N > 1 (data parallelism) raises NotImplementedError.
 """
 
 from __future__ import annotations

@@ -1,19 +1,20 @@
-"""CLI: train a DUDF field from a preprocessed point cloud, on the GPU.
+"""CLI: train a DUDF field from a preprocessed mesh or point cloud, on the GPU.
 
 The torch counterpart of ``diffudf_tpu/cli/train.py``:
 
     python -m diffudf_tpu_torch.cli.train <config.json> [device_ordinal] [--resume] [--device cpu]
 
 ``setup_train`` follows the JAX package's pipeline: output dirs and
-``params.json``, the sampler and its oracle, staged training, per-chunk
-checkpoints (best / current / periodic), ``losses.csv``, the final model,
-the slice figure of the best params at width 512 (``distance_fields.png``
-and ``pred_grad.png``: one K1 launch, and the brute nearest-point distance
-of the plane to the cloud, one K5 launch) and the final marching-cubes
-reconstructions (``cli/generate_mc.py::run_mc``).  Point-cloud input
-(``"onlyPCloud": true``) only: the mesh-input oracle, the overlapped oracle
-build and data parallelism are not ported yet, and a mesh-mode config
-raises NotImplementedError.
+``params.json``, the sampler and its oracle (by default built on a host
+thread behind the first epochs, :mod:`..data.async_build`), staged
+training, per-chunk checkpoints (best / current / periodic),
+``losses.csv``, the final model, the slice figure of the best params at
+width 512 (``distance_fields.png`` and ``pred_grad.png``: one K1 launch, and
+the plane's GT distances: the triangle table in mesh mode, the brute
+nearest-point distance to the cloud in point-cloud mode, one K5 launch) and
+the final marching-cubes reconstructions (``cli/generate_mc.py::run_mc``).
+Mesh input (``<dataset>_t.obj``) by default, point-cloud input with
+``"onlyPCloud": true``.  One device: data parallelism is not ported.
 """
 
 from __future__ import annotations
@@ -28,8 +29,10 @@ import numpy as np
 import torch
 
 from ..config import TrainConfig
-from ..data.mesh_distance import point_cloud_distance
-from ..data.mesh_io import load_point_cloud
+from ..data.async_build import overlapped_mesh_sampler, overlapped_pc_sampler
+from ..data.mesh_distance import (point_cloud_distance, point_triangle_distance_pruned,
+                                  point_triangle_distance_table, triangles_from_mesh)
+from ..data.mesh_io import load_mesh, load_point_cloud
 from ..data.sampling import TrainingSampler
 from ..train import checkpoint as ckpt
 from ..train.loop import Trainer
@@ -39,43 +42,78 @@ from .generate_df import slice_figure
 SLICE_WIDTH = 512  # the figure's plane samples a side (JAX ``train.py:287-292``)
 
 
-def build_sampler(cfg: TrainConfig, device="cuda"):
-    """Load ``<dataset>_pc.ply`` and build the point-cloud sampler.
-
-    The one-shot candidate-grid oracle build is cached on disk next to the
-    preprocessed asset (``<dataset>_oracle_cache.npz.pc_cand.npz``, content
-    hashed, shared with the JAX package; see :mod:`..data.oracle_cache`).
-    Set ``DIFFUDF_ORACLE_CACHE=0`` to disable.  -> (sampler, cloud)."""
-    if not cfg.only_pcloud:
-        raise NotImplementedError(
-            "mesh-input training (the triangle oracle) is not ported yet: set "
-            "\"onlyPCloud\": true (ROADMAP.md, 'Modules to port', item 'Mesh-input oracle')")
-    cache = cfg.dataset + "_oracle_cache.npz"
+def _cache_path(cfg: TrainConfig):
+    """The oracle cache beside the preprocessed asset, or None under
+    ``DIFFUDF_ORACLE_CACHE=0``."""
     if os.environ.get("DIFFUDF_ORACLE_CACHE", "1") == "0":
-        cache = None
+        return None
+    return cfg.dataset + "_oracle_cache.npz"
+
+
+def _load_inputs(cfg: TrainConfig):
+    """-> (cloud, triangles (T, 3, 3) host array or None, mesh or None)."""
     pc = load_point_cloud(cfg.dataset + "_pc.ply")
     if pc.normals is None:
         raise ValueError(f"{cfg.dataset}_pc.ply has no normals")
-    sampler = TrainingSampler.from_point_cloud(
-        pc.points, pc.normals, cfg.batch_size, cfg.sampling_percentiles,
-        cache_path=cache, device=device,
-    )
-    return sampler, pc
+    if cfg.only_pcloud:
+        return pc, None, None
+    mesh = load_mesh(cfg.dataset + "_t.obj")
+    return pc, mesh.vertices[mesh.faces], mesh
 
 
-def gt_plane_distances(cfg: TrainConfig, pc, samples: torch.Tensor) -> torch.Tensor:
+def build_sampler(cfg: TrainConfig, device="cuda"):
+    """Load ``<dataset>_pc.ply`` (and ``<dataset>_t.obj`` in mesh mode) and
+    build the sampler with its candidate-grid oracle.
+
+    The one-shot build is cached on disk next to the preprocessed asset
+    (``<dataset>_oracle_cache.npz.{tri,pc}_cand.npz``, content hashed,
+    shared with the JAX package; see :mod:`..data.oracle_cache`).  Set
+    ``DIFFUDF_ORACLE_CACHE=0`` to disable.  -> (sampler, cloud, mesh or
+    None)."""
+    pc, tris, mesh = _load_inputs(cfg)
+    if tris is None:
+        sampler = TrainingSampler.from_point_cloud(
+            pc.points, pc.normals, cfg.batch_size, cfg.sampling_percentiles,
+            cache_path=_cache_path(cfg), device=device)
+    else:
+        sampler = TrainingSampler.from_mesh(
+            pc.points, pc.normals, tris, cfg.batch_size, cfg.sampling_percentiles,
+            cache_path=_cache_path(cfg), device=device)
+    return sampler, pc, mesh
+
+
+def build_sampler_overlapped(cfg: TrainConfig, device="cuda"):
+    """Like :func:`build_sampler`, but the candidate-grid build runs on a
+    host thread while training starts at once on an exact bootstrap oracle
+    (:mod:`..data.async_build`).  -> (bootstrap sampler, cloud, mesh or
+    None, handle); pass ``handle.poll`` as ``Trainer.run(sampler_update=…)``."""
+    pc, tris, mesh = _load_inputs(cfg)
+    if tris is None:
+        sampler, handle = overlapped_pc_sampler(
+            pc.points, pc.normals, cfg.batch_size, cfg.sampling_percentiles,
+            cache_path=_cache_path(cfg), device=device)
+    else:
+        sampler, handle = overlapped_mesh_sampler(
+            pc.points, pc.normals, tris, cfg.batch_size, cfg.sampling_percentiles,
+            cache_path=_cache_path(cfg), device=device)
+    return sampler, pc, mesh, handle
+
+
+def gt_plane_distances(pc, mesh, samples: torch.Tensor, sampler=None) -> torch.Tensor:
     """Unsigned GT distances of the slice plane's samples (for the figure),
     on the samples' device.
 
-    pc mode: the brute nearest-point distance to the full cloud (K5 on
-    CUDA), as the JAX package's pc branch; the pc-mode candidate table is
-    not reused, since it has no off-surface exactness guarantee (the JAX
-    package measured up to 1.6e-2 plane error with it).  The mesh branches
-    (the triangle table, the pruned sweep) wait for the mesh-input oracle."""
-    if not cfg.only_pcloud:
-        raise NotImplementedError(
-            "the mesh-input slice distances are not ported yet (ROADMAP.md, "
-            "'Modules to port', item 'Mesh-input oracle')")
+    Mesh mode: the training sampler's coordinate table when it holds one
+    (the candidate sets the training GT used), else the pruned sweep over
+    the mesh's triangles (float32 centroid ranking).  Point-cloud mode: the
+    brute nearest-point distance to the full cloud (K5 on CUDA); the pc
+    candidate table is not reused, since it has no off-surface exactness
+    guarantee (the JAX package measured up to 1.6e-2 plane error with it)."""
+    if sampler is not None and sampler.tri_table is not None:
+        return point_triangle_distance_table(samples, sampler.tri_table).abs()
+    if mesh is not None:
+        tris = triangles_from_mesh(mesh.vertices, mesh.faces, device=samples.device)
+        return point_triangle_distance_pruned(samples, tris).abs()
     cloud = torch.as_tensor(np.asarray(pc.points, np.float32), device=samples.device)
     return point_cloud_distance(samples, cloud).abs()
 
@@ -93,24 +131,36 @@ def generate_final_meshes(params, spec, cfg: TrainConfig, out_dir: str, stats=No
 
 
 def setup_train(cfg: TrainConfig, make_meshes: bool = True, verbose: bool = True,
-                resume: bool = False, device="cuda", stats=None):
+                resume: bool = False, device="cuda", stats=None,
+                overlap_oracle: bool | None = None):
     """Programmatic entry.
 
     ``resume=True`` continues an interrupted run from
     ``models/train_state.npz`` (params, optimizer state, epoch and key; a
     file written by either package).
 
-    ``stats``: when given a dict, it receives ``oracle_s`` (sampler and
-    oracle build), ``train_s`` and per stage ``<stage>_s`` and
-    ``<stage>_steps`` (chunk seconds with the device synchronised at each
-    chunk's end, and updates), and under ``mesh`` the extraction's stats
-    (:func:`.generate_mc.run_mc`).
+    ``overlap_oracle`` (default: on unless ``DIFFUDF_ORACLE_OVERLAP=0``)
+    runs the candidate-grid build on a host thread behind the first epochs,
+    which train on an exact bootstrap oracle until the swap
+    (:mod:`..data.async_build`).
+
+    ``stats``: when given a dict, it receives ``oracle_s`` (loading the
+    inputs and building the sampler: with the overlap, only the bootstrap
+    sampler), ``oracle_build_s`` (the candidate-grid build: the thread's
+    wall time with the overlap), ``swap_epoch`` (the epoch the grid oracle
+    took over, None if it never did, or without the overlap),
+    ``bootstrap_epochs`` (epochs trained on the bootstrap oracle),
+    ``train_s`` and per stage ``<stage>_s`` and ``<stage>_steps`` (chunk
+    seconds with the device synchronised at each chunk's end, and updates),
+    the figure's seconds under ``figure`` and under ``mesh`` the
+    extraction's stats (:func:`.generate_mc.run_mc`).
 
     Returns ``(training_time_seconds, meshes, state)``:
     ``training_time_seconds`` counts sampler construction (the oracle build
-    included) through the last chunk, minus per-chunk callback work,
-    the JAX package's accounting; ``meshes`` is the ``(meshMU, meshCAP)``
-    pair, a mesh in siren mode, or None when ``make_meshes`` is off.
+    included, however much of it the overlap did not hide) through the last
+    chunk, minus per-chunk callback work, the JAX package's accounting;
+    ``meshes`` is the ``(meshMU, meshCAP)`` pair, a mesh in siren mode, or
+    None when ``make_meshes`` is off.
     """
     if stats is None:
         stats = {}
@@ -118,8 +168,14 @@ def setup_train(cfg: TrainConfig, make_meshes: bool = True, verbose: bool = True
     with open(osp.join(full_path, "params.json"), "w") as fh:
         json.dump(cfg.to_dict(), fh, indent=4)
 
+    if overlap_oracle is None:
+        overlap_oracle = os.environ.get("DIFFUDF_ORACLE_OVERLAP", "1") != "0"
     t_pipeline = time.perf_counter()
-    sampler, pc = build_sampler(cfg, device=device)
+    handle = None
+    if overlap_oracle:
+        sampler, pc, mesh, handle = build_sampler_overlapped(cfg, device=device)
+    else:
+        sampler, pc, mesh = build_sampler(cfg, device=device)
     stats["oracle_s"] = time.perf_counter() - t_pipeline
     spec = cfg.network.to_spec()
 
@@ -171,9 +227,26 @@ def setup_train(cfg: TrainConfig, make_meshes: bool = True, verbose: bool = True
             print(f"Epoch: {epoch_end} - Loss: {float(logs['epoch_loss'][-1]):.6f}"
                   f" - Learning Rate: {float(logs['lr'][-1]):.3e}", flush=True)
 
-    state, _, train_time = trainer.run(state=state, start_epoch=start_epoch, callback=on_chunk)
+    state, _, train_time = trainer.run(state=state, start_epoch=start_epoch, callback=on_chunk,
+                                       sampler_update=handle.poll if handle else None)
     pipeline_time = time.perf_counter() - t_pipeline - trainer.callback_seconds
     stats["train_s"] = train_time
+    swap = trainer.last_swap_epoch
+    stats["swap_epoch"] = swap
+    if handle is None:
+        stats["oracle_build_s"], stats["bootstrap_epochs"] = stats["oracle_s"], 0
+    else:
+        stats["bootstrap_epochs"] = (cfg.num_epochs if swap is None else swap) - start_epoch
+        # the figure reads the grid oracle if the build ended after training
+        sampler = trainer.sampler if swap is not None else (handle.poll() or sampler)
+        stats["oracle_build_s"] = handle.build_seconds
+        if verbose:
+            if swap is not None:
+                print(f"GT oracle table swapped in at epoch {swap} (build "
+                      f"{handle.build_seconds:.1f}s, hidden behind training)")
+            else:
+                print("GT oracle build outlasted training, or failed; the run completed on "
+                      "the exact bootstrap oracle")
     for lo, hi, stage, secs in trainer.chunk_seconds:
         stats[f"{stage}_s"] = stats.get(f"{stage}_s", 0.0) + secs
         stats[f"{stage}_steps"] = stats.get(f"{stage}_steps", 0) + (hi - lo) * cfg.batches_per_epoch
@@ -186,7 +259,7 @@ def setup_train(cfg: TrainConfig, make_meshes: bool = True, verbose: bool = True
     if verbose:
         print("Generating distance field slices")
     stats["figure"] = slice_figure(state.best_params, spec,
-                                   lambda samples: gt_plane_distances(cfg, pc, samples),
+                                   lambda samples: gt_plane_distances(pc, mesh, samples, sampler),
                                    cfg.gt_mode, cfg.alpha, SLICE_WIDTH, recon_dir)
 
     meshes = None

@@ -1,27 +1,37 @@
-"""Ground-truth distance oracles: the point part and the brute triangle
-sweep of ``diffudf_tpu/data/mesh_distance.py``.
+"""Ground-truth distance oracles: the torch copy of
+``diffudf_tpu/data/mesh_distance.py`` without the winding number.
 
-Training's oracle: the one-time build is host numpy + scipy ``cKDTree``:
-for each cell of a g³ lattice over the query domain, the k cloud points
-nearest the cell center.  The per-step oracle,
+Training's oracles.  Point-cloud input: the one-time build is host numpy +
+scipy ``cKDTree`` (for each cell of a g³ lattice over the query domain, the
+k cloud points nearest the cell center) and the per-step oracle,
 :func:`point_cloud_distance_cells`, is a torch gather of one (k, 3) row per
-query and a min over it, on the device of its inputs.
+query and a min over it.  Mesh input: :func:`build_candidate_grid`, the
+same host build over triangles (the k best bounding-sphere lower bounds a
+cell), is materialised once on the device as per-cell triangle coordinates
+(:func:`build_triangle_table`), and the per-step oracle,
+:func:`point_triangle_distance_table`, gathers one (k·9)-float row per query
+and runs the exact closest-point test on it.  Until that build lands, the
+bootstrap oracles are exact: the brute sweep :func:`point_triangle_distance`
+over query tiles and triangle slabs (mesh), and :func:`point_cloud_distance`
+(point cloud).
 
-The slice figure's oracles: :func:`point_cloud_distance`, the exact
-nearest-point distance, which on a CUDA device is one launch of the kernel
-K5 (:mod:`..ops.min_distance`; the JAX package keeps its Pallas twin off
-this function only for a TPU compiler limit), and
-:func:`point_triangle_distance`, the exact distance to a triangle soup by a
-brute sweep in torch.  The mesh-input training oracle (candidate grid,
-triangle table, pruned sweep) is not ported yet.
+The figures' oracles: :func:`point_cloud_distance`, the exact nearest-point
+distance, which on a CUDA device is one launch of the kernel K5
+(:mod:`..ops.min_distance`; the JAX package keeps its Pallas twin off this
+function only for a TPU compiler limit); :func:`point_triangle_distance`;
+and :func:`point_triangle_distance_pruned`, which tests only the k triangles
+of best lower bound from a float32 centroid product.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import numpy as np
 import torch
 
 CAND_GRID_G = 48  # lattice resolution of the candidate grid
+CAND_GRID_K = 96  # candidate triangles per cell
 CAND_GRID_LO = -1.08  # covers [-1,1]³ plus the near-sample fringe
 CAND_GRID_HI = 1.08
 CAND_PTS_K = 64  # candidate cloud points per cell
@@ -33,6 +43,13 @@ def _cell_centers(g: int, lo: float, hi: float):
     ax = lo + (np.arange(g, dtype=np.float32) + 0.5) * cell
     cx, cy, cz = np.meshgrid(ax, ax, ax, indexing="ij")
     return np.stack([cx, cy, cz], axis=-1).reshape(-1, 3)
+
+
+def _cell_rows(queries, g: int, lo: float, hi: float):
+    """(Q,) linear index of each query's cell, clipped into the lattice."""
+    cell = (hi - lo) / g
+    ci = torch.clamp(torch.floor((queries - lo) / cell).to(torch.int64), 0, g - 1)
+    return (ci[:, 0] * g + ci[:, 1]) * g + ci[:, 2]
 
 
 def build_point_candidate_indices(
@@ -93,10 +110,7 @@ def point_cloud_distance_cells(
 
     queries: (Q, 3); table: (g³, k, 3) from
     :func:`build_point_candidate_grid`.  -> (Q,) distances."""
-    cell = (hi - lo) / g
-    ci = torch.clamp(torch.floor((queries - lo) / cell).to(torch.int64), 0, g - 1)
-    lin = (ci[:, 0] * g + ci[:, 1]) * g + ci[:, 2]
-    pts = table[lin]  # (Q, k, 3) contiguous row gather
+    pts = table[_cell_rows(queries, g, lo, hi)]  # (Q, k, 3) contiguous row gather
     diff = queries[:, None, :] - pts
     d2 = torch.min(torch.sum(diff * diff, dim=2), dim=1).values
     return torch.sqrt(torch.clamp(d2, min=0.0))
@@ -179,15 +193,256 @@ def _closest_point_sq_dist(p, a, b, c):
     return torch.sum(diff * diff, dim=-1)
 
 
-def point_triangle_distance(queries: torch.Tensor, tri_verts: torch.Tensor, tile: int = 256):
+def point_triangle_distance(queries: torch.Tensor, tri_verts: torch.Tensor, tile: int = 256,
+                            slab: int | None = None):
     """Exact unsigned distance to a triangle soup: queries (Q, 3), tri_verts
-    (T, 3, 3) -> (Q,), ``tile`` queries at a time, on the queries' device."""
-    a = tri_verts[:, 0][None]
-    b = tri_verts[:, 1][None]
-    c = tri_verts[:, 2][None]
-    out = [torch.sqrt(torch.clamp(_closest_point_sq_dist(q[:, None, :], a, b, c).min(1).values,
-                                  min=0.0))
-           for q in torch.split(queries, tile)]
+    (T, 3, 3) -> (Q,), on the queries' device.
+
+    ``tile`` queries at a time against ``slab`` triangles at a time (all of
+    them by default) with a running min, so the (tile, slab) temporaries of
+    the closest-point test stay the same size at any T.  The min is exact:
+    the result does not depend on the tiling."""
+    slab = slab or max(len(tri_verts), 1)
+    slabs = [(t[:, 0][None], t[:, 1][None], t[:, 2][None]) for t in torch.split(tri_verts, slab)]
+    out = []
+    for q in torch.split(queries, tile):
+        best = None
+        for a, b, c in slabs:
+            d2 = _closest_point_sq_dist(q[:, None, :], a, b, c).min(1).values
+            best = d2 if best is None else torch.minimum(best, d2)
+        out.append(torch.sqrt(torch.clamp(best, min=0.0)))
+    return torch.cat(out) if out else queries.new_zeros(0)
+
+
+# The bootstrap sweep of mesh-mode training (before the candidate grid
+# lands): BOOT_PAIRS (query, triangle) pairs at a time, BOOT_SLAB triangles
+# a slab.  The closest-point test holds about 170 bytes a pair of
+# temporaries, so a (1024, 4096) block stays under 0.75 GB at any T.
+BOOT_SLAB = 4096
+BOOT_PAIRS = 1 << 22
+
+
+def point_triangle_distance_bootstrap(queries: torch.Tensor, tri_verts: torch.Tensor):
+    """:func:`point_triangle_distance` in (BOOT_PAIRS / BOOT_SLAB, BOOT_SLAB)
+    blocks: the exact oracle of mesh-mode training until the table lands."""
+    return point_triangle_distance(queries, tri_verts, tile=BOOT_PAIRS // BOOT_SLAB,
+                                   slab=BOOT_SLAB)
+
+
+def triangle_bounds(tri_verts: torch.Tensor):
+    """(T, 3, 3) -> (centroids (T, 3), radii (T,)) bounding spheres."""
+    c = tri_verts.mean(dim=1)
+    r = torch.sqrt(torch.max(torch.sum((tri_verts - c[:, None, :]) ** 2, dim=-1), dim=1).values)
+    return c, r
+
+
+@contextlib.contextmanager
+def _float32_matmul():
+    """Products in float32 (no TF32 rounding of their inputs) for the body
+    of the ``with``: TF32 ranks candidates about as coarsely as the TPU's
+    bf16 passes did (``diffudf_tpu/data/mesh_distance.py:32-48``)."""
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def point_triangle_distance_pruned(queries: torch.Tensor, tri_verts: torch.Tensor,
+                                   centroids: torch.Tensor | None = None,
+                                   radii: torch.Tensor | None = None,
+                                   k: int = 64, tile: int = 1024):
+    """Unsigned distance to a triangle soup via candidate pruning:
+
+      1. a float32 product gives each query its distance to every triangle
+         *centroid*; ``max(d_centroid − r_tri, 0)`` lower-bounds the true
+         triangle distance;
+      2. ``torch.topk`` keeps the ``k`` smallest lower bounds per query;
+      3. the exact closest-point test runs only on those k candidates.
+
+    Exact whenever the true nearest triangle is among the k best lower
+    bounds, which k = 64 gives by a wide margin on preprocessed meshes.
+    ``tile`` queries at a time; soups of at most k triangles take the brute
+    sweep."""
+    if tri_verts.shape[0] <= k:
+        return point_triangle_distance(queries, tri_verts)
+    if centroids is None or radii is None:
+        centroids, radii = triangle_bounds(tri_verts)
+    c_sq = torch.sum(centroids * centroids, dim=1)
+    out = []
+    with _float32_matmul():
+        for q in torch.split(queries, tile):
+            cross = q @ centroids.T  # (Tq, T)
+            d2c = torch.clamp(c_sq[None, :] - 2.0 * cross + torch.sum(q * q, dim=1)[:, None],
+                              min=0.0)
+            lb = torch.sqrt(d2c) - radii[None, :]
+            idx = torch.topk(-lb, k, dim=1).indices  # (Tq, k) smallest lower bounds
+            cand = tri_verts[idx]  # (Tq, k, 3, 3)
+            d2 = _closest_point_sq_dist(q[:, None, :], cand[:, :, 0], cand[:, :, 1], cand[:, :, 2])
+            out.append(torch.sqrt(torch.clamp(d2.min(1).values, min=0.0)))
+    return torch.cat(out) if out else queries.new_zeros(0)
+
+
+# Triangles ranked in the top CAND_BIG_MAX by bounding radius are tested
+# densely against every cell: the kNN-over-centroids shortcut is only safe
+# when radii are bounded, and the few largest outliers (a ground plane, a
+# coarse hull face) are exactly the ones a nearest-centroid query misses.
+CAND_BIG_MAX = 512
+
+
+def build_candidate_grid(tri_verts, centroids=None, radii=None, g: int = CAND_GRID_G,
+                         k: int = CAND_GRID_K, lo: float = CAND_GRID_LO,
+                         hi: float = CAND_GRID_HI) -> np.ndarray:
+    """One-time candidate index: the k best-lower-bound triangles per cell
+    of a g³ lattice over the query domain, (g³, k) int32 numpy, the JAX
+    function's indices.  Host numpy and scipy only: no device traffic, so
+    the background build thread of :mod:`.async_build` may run it.
+
+    Candidate selection is the exact top-k by the bounding-sphere lower
+    bound ``dist(cell_center, centroid) − radius`` over ALL triangles, the
+    criterion of :func:`point_triangle_distance_pruned`.  The
+    ``CAND_BIG_MAX`` largest-radius triangles are scored densely against
+    every cell (a huge triangle's centroid can be far from cells its surface
+    passes through); the other triangles go through a centroid kNN whose
+    width escalates per cell until the kq-th neighbour distance exceeds
+    ``τ_k + max(small radii)``: every unqueried triangle's lower bound is
+    then ≥ the selected k-th, so the exclusion is exact.  Meshes of fewer
+    than k triangles repeat candidates up to k (harmless under the min)."""
+    from scipy.spatial import cKDTree
+
+    if centroids is None or radii is None:
+        tv = np.asarray(tri_verts, np.float32)
+        cen = tv.mean(axis=1)
+        rad = np.sqrt(np.max(np.sum((tv - cen[:, None, :]) ** 2, axis=-1), axis=1))
+    else:
+        cen = np.asarray(centroids, np.float32)
+        rad = np.asarray(radii, np.float32)
+    t = len(cen)
+    k_out = k
+    k = min(k, t)
+
+    centers = _cell_centers(g, lo, hi)
+    n_cells = len(centers)
+
+    # split: largest-radius triangles scored densely, the rest via kNN
+    nb = min(t, CAND_BIG_MAX)
+    big = np.argpartition(rad, t - nb)[t - nb:] if nb < t else np.arange(t)
+    small_mask = np.ones(t, bool)
+    small_mask[big] = False
+    small = np.flatnonzero(small_mask)
+    ts = len(small)
+    rad_small_max = np.float32(rad[small].max()) if ts else np.float32(0.0)
+    cen_big, rad_big = cen[big], rad[big]
+    cen_big_sq = np.sum(cen_big * cen_big, axis=1)
+
+    tree = cKDTree(cen[small]) if ts else None
+    kq0 = min(max(2 * k, k + 32), ts) if ts else 0
+
+    cand = np.empty((n_cells, k), np.int64)
+    chunk = 16384
+    for s in range(0, n_cells, chunk):
+        pts = centers[s:s + chunk]
+        m = len(pts)
+        # dense lower bounds vs the big set (m × nb product: trivial)
+        d2 = (np.sum(pts * pts, axis=1)[:, None] - 2.0 * (pts @ cen_big.T)
+              + cen_big_sq[None, :])
+        lb_big = np.sqrt(np.maximum(d2, 0.0)).astype(np.float32) - rad_big
+
+        rows = np.arange(m)
+        kq = kq0
+        while True:
+            if ts and kq >= 4096 and kq < ts:
+                # escalation blew past the kNN sweet spot: score the
+                # remaining rows densely against all small triangles (row
+                # count here is tiny: the pathological fringe)
+                d2s = (np.sum(pts[rows] * pts[rows], axis=1)[:, None]
+                       - 2.0 * (pts[rows] @ cen[small].T)
+                       + np.sum(cen[small] * cen[small], axis=1)[None, :])
+                lb_s = np.sqrt(np.maximum(d2s, 0.0)).astype(np.float32) - rad[small]
+                lb_all = np.concatenate([lb_s, lb_big[rows]], axis=1)
+                ids_all = np.concatenate([np.broadcast_to(small, lb_s.shape),
+                                          np.broadcast_to(big, (len(rows), nb))], axis=1)
+                part = np.argpartition(lb_all, k - 1, axis=1)[:, :k]
+                cand[s + rows] = np.take_along_axis(ids_all, part, axis=1)
+                break
+            if ts and kq:
+                d, idx = tree.query(pts[rows], k=kq, workers=-1)
+                if kq == 1:
+                    d, idx = d[:, None], idx[:, None]
+                lb_s = (d - rad[small[idx]]).astype(np.float32)
+                lb_all = np.concatenate([lb_s, lb_big[rows]], axis=1)
+                ids_all = np.concatenate([small[idx], np.broadcast_to(big, (len(rows), nb))],
+                                         axis=1)
+            else:
+                lb_all = lb_big[rows]
+                ids_all = np.broadcast_to(big, (len(rows), nb))
+            if lb_all.shape[1] > k:
+                part = np.argpartition(lb_all, k - 1, axis=1)[:, :k]
+                sel = np.take_along_axis(ids_all, part, axis=1)
+                tau = np.take_along_axis(lb_all, part, axis=1).max(axis=1)
+            else:
+                sel = np.array(ids_all)
+                tau = lb_all.max(axis=1)
+            cand[s + rows] = sel
+            if not ts or kq >= ts:
+                break
+            # exclusion is exact when every unqueried small triangle's lower
+            # bound (≥ d_kq − rad_small_max) is ≥ the selected k-th
+            unsafe = d[:, -1] < tau + rad_small_max
+            if not unsafe.any():
+                break
+            rows = rows[unsafe]
+            kq = min(max(kq * 2, 256), ts)
+
+    if cand.shape[1] < k_out:
+        reps = -(-k_out // cand.shape[1])
+        cand = np.tile(cand, (1, reps))[:, :k_out]
+    return cand.astype(np.int32)
+
+
+def point_triangle_distance_cells(queries: torch.Tensor, tri_verts: torch.Tensor,
+                                  cand: torch.Tensor, g: int = CAND_GRID_G,
+                                  lo: float = CAND_GRID_LO, hi: float = CAND_GRID_HI):
+    """Exact-on-candidates unsigned distance using the candidate grid
+    (the ``"indices"`` layout): queries (Q, 3), cand (g³, k) from
+    :func:`build_candidate_grid` -> (Q,).  Near-exact: the true nearest
+    triangle is among a cell's k candidates whenever the k-th lower bound
+    from the cell center exceeds the true distance by the cell
+    half-diagonal."""
+    q = queries.shape[0]
+    k = cand.shape[1]
+    ids = cand[_cell_rows(queries, g, lo, hi)].to(torch.int64)  # (Q, k)
+    tv = tri_verts[ids.reshape(-1)].reshape(q, k, 3, 3)
+    d2 = _closest_point_sq_dist(queries[:, None, :], tv[:, :, 0], tv[:, :, 1], tv[:, :, 2])
+    return torch.sqrt(torch.clamp(d2.min(1).values, min=0.0))
+
+
+def build_triangle_table(tri_verts: torch.Tensor, cand) -> torch.Tensor:
+    """The candidate grid as per-cell vertex *coordinates*: (T, 3, 3)
+    triangles + (g³, k) candidate indices -> (g³, k·9) float32 rows on the
+    triangles' device, by one gather there (382 MB at g = 48, k = 96).  The
+    per-step oracle then reads one contiguous row a query instead of k
+    scattered triangles."""
+    cand = torch.as_tensor(cand, device=tri_verts.device).to(torch.int64)
+    g3, k = cand.shape
+    return tri_verts.reshape(-1, 9)[cand.reshape(-1)].reshape(g3, k * 9)
+
+
+def point_triangle_distance_table(queries: torch.Tensor, table: torch.Tensor,
+                                  g: int = CAND_GRID_G, lo: float = CAND_GRID_LO,
+                                  hi: float = CAND_GRID_HI, tile: int = 32768):
+    """Exact-on-candidates unsigned mesh distance via the coordinate table:
+    queries (Q, 3), table (g³, k·9) from :func:`build_triangle_table` ->
+    (Q,).  The candidate sets of :func:`point_triangle_distance_cells`, so
+    the same values; ``tile`` queries at a time (a training batch is one
+    tile)."""
+    k = table.shape[1] // 9
+    out = []
+    for q in torch.split(queries, tile):
+        tv = table[_cell_rows(q, g, lo, hi)].reshape(-1, k, 9)  # contiguous row gather
+        d2 = _closest_point_sq_dist(q[:, None, :], tv[:, :, 0:3], tv[:, :, 3:6], tv[:, :, 6:9])
+        out.append(torch.sqrt(torch.clamp(d2.min(1).values, min=0.0)))
     return torch.cat(out) if out else queries.new_zeros(0)
 
 

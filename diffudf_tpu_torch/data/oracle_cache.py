@@ -1,14 +1,20 @@
-"""Disk cache for the one-shot point-oracle build: the point part of
+"""Disk cache for the one-shot oracle builds: the torch copy of
 ``diffudf_tpu/data/oracle_cache.py``, with the same key function and file
 layout, so that a cache written by either package serves the other.
 
-The candidate indices are a pure function of the preprocessed cloud and the
-grid constants.  They are cached next to the preprocessed asset in
-``<cache_path>.pc_cand.npz``, keyed by a SHA-1 of the exact cloud bytes plus
-the grid geometry, so a changed cloud or changed constants rebuild.  Legacy
-merged files (the field inside ``<cache_path>`` itself) are still read.
-Writes are atomic (tmp + ``os.replace``) and best-effort: an unwritable
-directory degrades to a warning, never an error.
+The candidate indices (:func:`.mesh_distance.build_candidate_grid` for a
+mesh, :func:`.mesh_distance.build_point_candidate_indices` for a cloud) are
+a pure function of the preprocessed geometry and the grid constants.  Each
+is cached next to the preprocessed asset in its own file,
+``<cache_path>.tri_cand.npz`` or ``<cache_path>.pc_cand.npz``, keyed by a
+SHA-1 of the exact input bytes plus the grid geometry, so a changed input or
+changed constants rebuild, and two writers of one asset never clobber each
+other.  Legacy merged files (the field inside ``<cache_path>`` itself) are
+still read.  Writes are atomic (tmp + ``os.replace``) and best-effort: an
+unwritable directory degrades to a warning, never an error.
+
+The ``*_host`` functions return numpy and touch no device: the background
+build thread of :mod:`.async_build` runs them.
 """
 
 from __future__ import annotations
@@ -80,6 +86,30 @@ def _store(path: str, field: str, key: str, idx: np.ndarray) -> None:
             os.remove(tmp)
         except OSError:
             pass
+
+
+def cached_candidate_grid_host(tri_verts, cache_path: str | None) -> np.ndarray:
+    """``build_candidate_grid`` with an optional npz disk cache, host side.
+
+    tri_verts: (T, 3, 3) host array.  Returns the (g³, k) int32 candidate
+    grid as numpy, loaded from ``cache_path`` when the stored SHA-1 of the
+    triangle bytes and grid constants matches."""
+    tv = np.asarray(tri_verts, np.float32)
+    g, k = md.CAND_GRID_G, md.CAND_GRID_K
+    lo, hi = md.CAND_GRID_LO, md.CAND_GRID_HI
+    key = _key("tri", tv, g, k, lo, hi)
+    hit = _load(cache_path, "tri_cand", key)
+    if hit is not None:
+        return hit.astype(np.int32)
+    cand = md.build_candidate_grid(tv)
+    if cache_path:
+        _store(cache_path, "tri_cand", key, cand)
+    return cand
+
+
+def cached_candidate_grid(tri_verts, cache_path: str | None, device="cuda") -> torch.Tensor:
+    """:func:`cached_candidate_grid_host` as an int32 tensor on ``device``."""
+    return torch.as_tensor(cached_candidate_grid_host(tri_verts, cache_path), device=device)
 
 
 def cached_point_candidate_idx_host(cloud, cache_path: str | None) -> np.ndarray:

@@ -119,6 +119,7 @@ class Trainer:
         self._vgh_op = vgh_op if fused else None
         self._vg_op = vg_op if fused else None
         self.chunk_seconds = []  # (lo, hi, stage, seconds) per chunk of the last run
+        self.last_swap_epoch = None  # the epoch the last run swapped samplers at
 
     # --- state ---------------------------------------------------------------
 
@@ -234,12 +235,20 @@ class Trainer:
         return edges
 
     def run(self, state: TrainState | None = None, start_epoch: int = 0,
-            chunk_size: int = 250, callback=None):
+            chunk_size: int = 250, callback=None, sampler_update=None):
         """Train from ``start_epoch`` to ``num_epochs``.
 
         ``callback(epoch_end, state, logs)`` fires after every chunk;
         ``logs`` maps term name -> np array of per-epoch values within the
         chunk (plus ``total``, ``lr`` and ``epoch_loss``).
+
+        ``sampler_update()`` (optional) is polled before every epoch; the
+        first time it returns a sampler, training goes on with that one (the
+        handover of a background oracle build, :mod:`..data.async_build`),
+        and ``self.last_swap_epoch`` records the epoch.  The JAX trainer
+        polls once a chunk, because its chunk is one compiled scan; here an
+        epoch is a Python call and the poll reads a flag.  The batches come
+        from the same generator stream either way.
 
         Returns (final_state, losses dict of full-length np arrays,
         training_seconds: chunk time with the device synchronised at each
@@ -250,6 +259,7 @@ class Trainer:
             state = self.init_state()
         self.callback_seconds = 0.0
         self.chunk_seconds = []
+        self.last_swap_epoch = None
         all_logs, train_time = [], 0.0
         for lo, hi in self.chunk_edges(start_epoch, chunk_size):
             stage = self.stage_for_epoch(lo)
@@ -257,7 +267,14 @@ class Trainer:
             t0 = time.perf_counter()
             gen = generator_for(state.key, self.device)
             state.key = next_key(state.key)
-            rows = [self.epoch(state, stage, e, gen) for e in range(lo, hi)]
+            rows = []
+            for e in range(lo, hi):
+                if sampler_update is not None:
+                    new_sampler = sampler_update()
+                    if new_sampler is not None:
+                        self.sampler, self.last_swap_epoch = new_sampler, e
+                        sampler_update = None  # one handover
+                rows.append(self.epoch(state, stage, e, gen))
             table = torch.stack(rows).cpu().numpy()  # the chunk's one host read
             secs = time.perf_counter() - t0
             train_time += secs

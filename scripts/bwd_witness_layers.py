@@ -38,7 +38,7 @@ def main():
         params = run["params"]
         cfg = TrainConfig.from_json(run["cfg_path"])
         spec = cfg.network.to_spec()
-        sampler, _ = train.build_sampler(cfg)
+        sampler, _, _ = train.build_sampler(cfg)
         pts, nrm, sdf = sampler.sample(torch.Generator(device="cuda").manual_seed(7))
         n_on = sampler.sizes.on_surface
         surf, off = pts[:n_on].contiguous(), pts[n_on:].contiguous()

@@ -393,3 +393,90 @@ def test_point_cloud_distance_launches_k5_once():
     torch.cuda.synchronize()
     assert tmd.launches == before + 1
     assert torch.equal(d, tmd.min_distance(q, cloud))
+
+
+def _torus_shell(nu=48, nv=24):
+    """(T, 3, 3) triangles of the torus shell |(r - 0.6, z)| = 0.25."""
+    u, v = np.meshgrid(np.linspace(0, 2 * np.pi, nu, endpoint=False),
+                       np.linspace(0, 2 * np.pi, nv, endpoint=False), indexing="ij")
+    verts = np.stack([(0.6 + 0.25 * np.cos(v)) * np.cos(u), (0.6 + 0.25 * np.cos(v)) * np.sin(u),
+                      0.25 * np.sin(v)], -1).reshape(-1, 3)
+    i, j = np.meshgrid(np.arange(nu), np.arange(nv), indexing="ij")
+    a, b = i * nv + j, (i + 1) % nu * nv + j
+    c, d = (i + 1) % nu * nv + (j + 1) % nv, i * nv + (j + 1) % nv
+    faces = np.concatenate([np.stack([a, b, c], -1).reshape(-1, 3),
+                            np.stack([a, c, d], -1).reshape(-1, 3)])
+    return verts[faces].astype(np.float32)
+
+
+def _mesh_queries(n, seed):
+    rng = np.random.default_rng(seed)
+    return np.concatenate([rng.uniform(-1.05, 1.05, (n, 3)),
+                           0.85 * rng.normal(size=(n, 3)) / np.sqrt(3)]).astype(np.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("oracle", ["table", "pruned"])
+def test_mesh_oracle_on_the_card_matches_the_cpu(oracle):
+    """The triangle table and the pruned sweep (float32 centroid ranking,
+    TF32 on or off outside) on the card within 1e-6 of the CPU results."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from diffudf_tpu_torch.data import mesh_distance as md
+
+    tris, q = _torus_shell(), _mesh_queries(3000, 2)
+    if oracle == "table":
+        cand = md.build_candidate_grid(tris, g=24)
+        run = lambda dev: md.point_triangle_distance_table(  # noqa: E731
+            torch.as_tensor(q, device=dev),
+            md.build_triangle_table(torch.as_tensor(tris, device=dev), cand), g=24)
+    else:
+        run = lambda dev: md.point_triangle_distance_pruned(  # noqa: E731
+            torch.as_tensor(q, device=dev), torch.as_tensor(tris, device=dev))
+    want = run("cpu")
+    saved = torch.backends.cuda.matmul.allow_tf32
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = True  # the oracle turns it off itself
+        got = run("cuda").cpu()
+        assert torch.backends.cuda.matmul.allow_tf32
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    assert float((got - want).abs().max()) <= 1e-6
+
+
+@pytest.mark.cuda
+def test_mesh_bootstrap_on_the_card_matches_the_brute_sweep():
+    """The bootstrap's blocks of BOOT_SLAB triangles, at a triangle count
+    that is no multiple of the slab, against the flat brute sweep."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from diffudf_tpu_torch.data import mesh_distance as md
+
+    tris = torch.as_tensor(_torus_shell(96, 27), device="cuda")  # 5,184 triangles
+    assert tris.shape[0] % md.BOOT_SLAB
+    q = torch.as_tensor(_mesh_queries(2500, 3), device="cuda")
+    got = md.point_triangle_distance_bootstrap(q, tris)
+    want = md.point_triangle_distance(q, tris)
+    assert float((got - want).abs().max()) <= 1e-6
+
+
+@pytest.mark.cuda
+def test_point_cloud_bootstrap_step_launches_k5_once():
+    """A batch of the point-cloud bootstrap sampler: one K5 launch on its far
+    rows, whose GT it gives."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from diffudf_tpu_torch.data.sampling import TrainingSampler
+
+    rng = np.random.default_rng(4)
+    cloud = _torus_cloud(20000, rng)
+    sampler = TrainingSampler.from_point_cloud_bootstrap(cloud, np.ones_like(cloud), 30000,
+                                                         (0.333, 0.666), device="cuda")
+    before = tmd.launches
+    pts, _, sdf = sampler.sample(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    assert tmd.launches == before + 1
+    sz = sampler.sizes
+    far = pts[sz.on_surface:sz.on_surface + sz.far].contiguous()
+    assert torch.equal(sdf[sz.on_surface:sz.on_surface + sz.far, 0],
+                       tmd.min_distance(far, sampler.surface_points))
