@@ -11,7 +11,9 @@ slice figure and the Chamfer evaluation of its meshes; rendering,
 ``cli.generate_st`` at 720x720 with 3 passes on the trained torus; the
 slice figures of ``cli.generate_df`` at width 512 on the trained torus;
 mesh-input training, ``cli.train`` on the trefoil's mesh with the same
-recipe; and the GT-mesh render of ``cli.generate_st``.  It
+recipe; the GT-mesh render of ``cli.generate_st``; point-cloud extraction,
+``cli.generate_pc`` on the trained torus; and the enhanced extraction,
+``cli.generate_mc`` at N=385 with vertex refinement.  It
 holds every kernel of those paths against its plain torch version: K1 (f,
 grad f, Hessian), K2 (its VJP), K3a (f, grad f), K3b (its VJP), K4 (f
 alone, the march's value) and K5 (the nearest cloud point's distance).
@@ -120,7 +122,32 @@ Phases, in order, each printing its seconds:
                 trefoil's normalised mesh with configs/st_cfg.json's camera
                 and light, 720x720, one pass (the exact triangle distance,
                 no kernel); gates: hits on 1-99% of the valid rays, finite
-                colours, a PNG file.
+                colours, a PNG file;
+ 15. point cloud — ``cli.generate_pc.main`` in process with
+                configs/pc_cfg.json's keys (100,000 samples, ref_steps 3,
+                surf_thresh 0.007, max_iter 10) on the trained torus at its
+                alpha 10; gates: K3a launched (ref_steps - 1) times a round
+                and K1 once a round, at least 100,000 finite points in
+                [-1, 1]^3 with unit normals; then the first round's
+                candidates projected on K3a + K1 and on the plain versions
+                on the card (positions and steps within 5e-4, keep masks
+                equal off the borderline rows, normals |cos| > 0.999 on 99%),
+                K3a's and K1's times at that shape beside their bounds, and
+                the cloud against torus_t.obj: median exact distance (the
+                brute sweep's closest-point test) within 2e-3, median |cos|
+                to the nearest triangle's normal at least 0.95, one sign of
+                n . n_tri on at least 90% of the points; prints the rounds,
+                the kept share a round, the projection and orientation
+                seconds and the Chamfer-L1 against the 100k-point cloud;
+ 16. enhanced — ``cli.generate_mc.main`` with configs/mc_enhanced_cfg.json's
+                keys (N=385, "both", mc33, sparse, refine_vertices 2,
+                taubin_iters 10) on the trained torus; gates: K3a launched
+                twice a mesh, K1 by the grid pass, every refinement move
+                within half a voxel (+ 1e-6), both meshes' Chamfer-L1
+                within the torus protocol floor, and the MU mesh's
+                unrefined vertices refined on K3a against the plain version
+                within 5e-4; prints the Stats line beside phase 5's and the
+                Chamfer beside the JAX package's enhanced torus row.
 
 Then a ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}`` line.
 Any failed phase raises, and the script exits non-zero without those two
@@ -208,6 +235,23 @@ MAX_TREFOIL_CHAMFER_L1 = 0.012503
 JAX_TREFOIL_L1 = {"CAP": 0.010658, "MU": 0.010655}
 MESH_TOL = 1e-5
 CHAMFER_RTOL = {"L1": 1e-6, "L2": 1e-4, "NC": 1e-4}
+# Phases 15 and 16: configs/pc_cfg.json's and configs/mc_enhanced_cfg.json's
+# keys on the torus of phase 7 at its alpha 10 (their alpha 100 is the
+# beetle's).  The projection on the kernels against the same projection on
+# the plain versions within the golden point-cloud tolerance
+# (tests/test_golden_pc.py); the point cloud's median exact distance to the
+# normalised mesh (the JAX package's dense-point-cloud field error is about
+# 1e-3) and the median |cos| of its normals against the nearest triangle's
+# (tests/test_render_pc.py::test_generate_point_cloud); the JAX package's
+# enhanced torus row (results/results_demo_enhanced.csv: a TPU run with
+# another schedule, a record, not a gate).
+PC_CONFIG = os.path.join(REPO, "configs", "pc_cfg.json")
+ENHANCED_CONFIG = os.path.join(REPO, "configs", "mc_enhanced_cfg.json")
+PROJ_TOL = 5e-4
+MAX_PC_FIELD_ERROR = 2e-3
+MIN_PC_NORMAL_COS = 0.95
+MIN_ORIENTED_SHARE = 0.9
+JAX_ENHANCED_TORUS_L1 = {"CAP": 0.008765, "MU": 0.008766}
 
 
 def phase(name):
@@ -1325,6 +1369,269 @@ def gt_render_phase(tmp, data_dir):
     return {"render_s": stats["render_s"], **p}
 
 
+def zero_counts():
+    """Set every kernel's launch count to 0."""
+    from diffudf_tpu_torch.ops import min_distance, value, vg, vgh
+
+    vgh.launches = vgh.bwd_launches = vg.launches = vg.bwd_launches = value.launches = 0
+    min_distance.launches = 0
+
+
+def read_counts():
+    from diffudf_tpu_torch.ops import min_distance, value, vg, vgh
+
+    return {"K1": vgh.launches, "K2": vgh.bwd_launches, "K3a": vg.launches,
+            "K3b": vg.bwd_launches, "K4": value.launches, "K5": min_distance.launches}
+
+
+def nearest_triangles(queries, tris, tile=256):
+    """(exact distance (Q,), index of the nearest triangle (Q,)) of each
+    query: the brute sweep's closest-point test over every triangle, tile
+    queries at a time."""
+    from diffudf_tpu_torch.data.mesh_distance import _closest_point_sq_dist
+
+    a, b, c = (tris[:, k][None] for k in range(3))
+    dist, idx = [], []
+    for q in torch.split(queries, tile):
+        best = _closest_point_sq_dist(q[:, None, :], a, b, c).min(1)
+        dist.append(torch.sqrt(torch.clamp(best.values, min=0.0)))
+        idx.append(best.indices)
+    return torch.cat(dist), torch.cat(idx)
+
+
+def float64(params):
+    return [{k: v.double() for k, v in layer.items()} for layer in params]
+
+
+def projection_errors(got, plain, exact, failed, name):
+    """A projection's rows on the kernels against the plain versions, and
+    both against the plain versions in float64; -> the errors by row.
+
+    Where a projection lands on the zero set, its last step sqrt(|f|/alpha)
+    turns float32 noise in f into steps of up to several 1e-4 in any float32
+    arithmetic (the plain version's distance from float64 shows it), so the
+    kernels are held to float64 as WITNESS times the plain version's
+    distance (max and RMS); their distance from the plain version, and the
+    rows beyond PROJ_TOL of it, are printed."""
+    n = len(got)
+    d = (got - plain).abs().reshape(n, -1).max(1).values
+    e_k = (got.double() - exact).abs().reshape(n, -1).max(1).values
+    e_p = (plain.double() - exact).abs().reshape(n, -1).max(1).values
+    out = {"vs_plain_max": float(d.max()), "vs_plain_median": float(d.median()),
+           "rows_beyond_tol": int((d > PROJ_TOL).sum()),
+           "f64_max": (float(e_k.max()), float(e_p.max())),
+           "f64_rms": (float(e_k.square().mean().sqrt()), float(e_p.square().mean().sqrt()))}
+    for what in ("f64_max", "f64_rms"):
+        k, p = out[what]
+        if not k <= WITNESS * p:
+            failed.append(f"{name}: the kernels' {what} distance from float64 {k} > "
+                          f"{WITNESS} x the plain version's {p}")
+    return out
+
+
+@phase("point cloud")
+def point_cloud_phase(tmp, run):
+    """cli.generate_pc.main with configs/pc_cfg.json's keys on the trained
+    torus; then the first round's projection on the kernels against the
+    plain versions, and the cloud against the normalised mesh."""
+    from diffudf_tpu_torch.cli import generate_pc
+    from diffudf_tpu_torch.data.mesh_io import load_obj, load_point_cloud
+    from diffudf_tpu_torch.data.mesh_distance import triangles_from_mesh
+    from diffudf_tpu_torch.fields.siren import SirenSpec
+    from diffudf_tpu_torch.ops import vg, vgh
+    from diffudf_tpu_torch.pc.sampler import project_points
+
+    with open(PC_CONFIG) as fh:
+        cfg = json.load(fh)
+    cfg.update(alpha=RECIPE["alpha"], output_path=os.path.join(tmp, "torus_generated.ply"),
+               model_path=os.path.join(tmp, "runs", "torus", "models", "model_best.npz"))
+    cfg_path = os.path.join(tmp, "pc_cfg.json")
+    with open(cfg_path, "w") as fh:
+        json.dump(cfg, fh)
+
+    zero_counts()
+    t0 = time.perf_counter()
+    pc, stats = generate_pc.main([cfg_path])
+    wall_s = time.perf_counter() - t0
+    launches = read_counts()
+
+    rounds, n = stats["rounds"], len(pc.points)
+    share = [k / c for k, c in zip(stats["kept"], stats["candidates"])]
+    print(f"[pc] {n} points in {rounds} rounds (kept a round: {stats['kept']}, share "
+          f"{', '.join(f'{s:.3f}' for s in share)}); projection {stats['project_s']:.3f} s on the "
+          f"device, orientation {stats['orient_s']:.3f} s on the host, generate_pc "
+          f"{stats['total_s']:.3f} s (main {wall_s:.3f} s with the PLY); launches {launches}",
+          flush=True)
+    want = {"K1": rounds, "K2": 0, "K3a": (cfg["ref_steps"] - 1) * rounds, "K3b": 0, "K4": 0,
+            "K5": 0}
+    if launches != want:
+        raise AssertionError(f"launches {launches} != {want}: K3a (ref_steps - 1) times and K1 "
+                             f"once a round")
+    pts, nrm = np.asarray(pc.points), np.asarray(pc.normals)
+    if not (n >= cfg["nsamples"] and np.isfinite(pts).all() and np.isfinite(nrm).all()
+            and (np.abs(pts) <= 1.0).all()):
+        raise AssertionError(f"{n} points (want >= {cfg['nsamples']}, finite, in [-1, 1]^3)")
+    unit_err = float(np.abs(np.linalg.norm(nrm, axis=1) - 1).max())
+    if not unit_err <= 1e-4:
+        raise AssertionError(f"normals are not unit vectors: |norm - 1| up to {unit_err}")
+
+    # the first round's candidates (the sampler's generator, seed 0), projected
+    # on K3a + K1, on the plain versions and on the plain versions in float64,
+    # all on the card
+    spec = SirenSpec(hidden=HIDDEN)
+    params = run["params"]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x0 = torch.rand((cfg["nsamples"], 3), generator=gen, device="cuda") * 2.0 - 1.0
+    kw = dict(gt_mode=RECIPE["gt_mode"], alpha=RECIPE["alpha"], num_steps=cfg["ref_steps"],
+              want_hessian_normals=True)
+    plain = dict(vg_fn=vg.vg_reference, vgh_fn=vgh.vgh_reference)
+    got = project_points(params, spec, x0, **kw)
+    want_p = project_points(params, spec, x0, **plain, **kw)
+    exact = project_points(float64(params), spec, x0.double(), **plain, **kw)
+    torch.cuda.synchronize()
+    proj, failed = {}, []
+    for k, a, b, e in zip(("positions", "steps"), got, want_p, exact):
+        proj[k] = projection_errors(a, b, e, failed, k)
+    keep = [((x.abs() <= 1).all(1) & (st < cfg["surf_thresh"])) for x, st, _ in (got, want_p)]
+    border = (((want_p[0].abs() - 1).abs() < 1e-3).any(1)
+              | ((want_p[1] - cfg["surf_thresh"]).abs() < 1e-3))
+    flips = int((keep[0] != keep[1])[~border].sum())
+    cos_share = float(((got[2] * want_p[2]).sum(1).abs() > 0.999).float().mean())
+    proj.update(keep_flips=flips, borderline=int(border.sum()), normal_cos_share=cos_share)
+    print(f"[pc] first round, kernels vs plain versions on the card: {json.dumps(proj)}; keep "
+          f"masks differ on {flips} rows off the {proj['borderline']} borderline ones; normals "
+          f"|cos| > 0.999 on {cos_share:.4f}")
+    if flips or cos_share < 0.99:
+        failed.append(f"keep masks differ on {flips} rows, normals agree on {cos_share}")
+    if failed:
+        raise AssertionError("the projection on the kernels: " + "; ".join(failed))
+
+    # K3a and K1 at the round's shape, with their bounds
+    x1 = got[0].contiguous()
+    times = {}
+    for name, kernel, plain in (("K3a", vg.vg, vg.vg_reference),
+                                ("K1", vgh.vgh, vgh.vgh_reference)):
+        ms, plain_ms = cuda_ms(lambda: kernel(params, spec, x1), 20), cuda_ms(
+            lambda: plain(params, spec, x1), 5)
+        b = kernel_bounds(name, len(x1))
+        times[name] = {"points": len(x1), "ms": ms, "plain_ms": plain_ms, **b}
+        print(f"[pc] {name} at {len(x1)} points: {ms:.3f} ms (median of 20), plain "
+              f"{plain_ms:.3f} ms; {bounds_text(ms, b)}")
+
+    # against the normalised mesh: exact distance and the nearest triangle's
+    # normal; the 100k-point cloud for the Chamfer-L1
+    mesh = load_obj(os.path.join(run["data_dir"], "torus_t.obj"))
+    tris = triangles_from_mesh(mesh.vertices, mesh.faces)
+    q = torch.as_tensor(pts, device="cuda")
+    dist, tri = nearest_triangles(q, tris)
+    tn = torch.linalg.cross(tris[:, 1] - tris[:, 0], tris[:, 2] - tris[:, 0])
+    tn = tn / tn.norm(dim=1, keepdim=True).clamp(min=1e-20)
+    dots = (torch.as_tensor(nrm, device="cuda") * tn[tri]).sum(1)
+    field_err = float(dist.median())
+    normal_cos = float(dots.abs().median())
+    oriented = float(max((dots > 0).float().mean(), (dots < 0).float().mean()))
+    cloud = load_point_cloud(os.path.join(run["data_dir"], "torus_pc.ply")).points
+    chamfer = chamfer_l1(pts.astype(np.float64), cloud)
+    print(f"[pc] against torus_t.obj ({len(tris)} triangles): median distance {field_err:.3e} "
+          f"(bound {MAX_PC_FIELD_ERROR}), max {float(dist.max()):.3e}; median |cos| to the "
+          f"nearest triangle's normal {normal_cos:.4f} (bound {MIN_PC_NORMAL_COS}); one sign of "
+          f"n . n_tri on {oriented:.4f} (bound {MIN_ORIENTED_SHARE}); Chamfer-L1 against the "
+          f"100k-point cloud {chamfer:.6f} (phase 7's meshes: MU {run['chamfer']['MU']:.6f}, "
+          f"CAP {run['chamfer']['CAP']:.6f})")
+    if not (field_err <= MAX_PC_FIELD_ERROR and normal_cos >= MIN_PC_NORMAL_COS
+            and oriented >= MIN_ORIENTED_SHARE):
+        raise AssertionError(f"point cloud: median distance {field_err}, median |cos| "
+                             f"{normal_cos}, oriented share {oriented}")
+    return {"launches": launches, "points": n, "rounds": rounds, "kept": stats["kept"],
+            "project_s": stats["project_s"], "orient_s": stats["orient_s"],
+            "total_s": stats["total_s"], "projection_vs_plain": proj, "times": times,
+            "field_error_median": field_err, "normal_cos_median": normal_cos,
+            "oriented_share": oriented, "chamfer_l1": chamfer}
+
+
+@phase("enhanced")
+def enhanced_phase(tmp, run, slice_stats):
+    """cli.generate_mc.main with configs/mc_enhanced_cfg.json's keys on the
+    trained torus; then the MU mesh's refinement on K3a against the plain
+    version."""
+    from diffudf_tpu_torch.cli import generate_mc
+    from diffudf_tpu_torch.ops import vg
+
+    with open(ENHANCED_CONFIG) as fh:
+        cfg = json.load(fh)
+    cfg.update(alpha=RECIPE["alpha"], output_path=os.path.join(tmp, "torus_enhanced.obj"),
+               model_path=os.path.join(tmp, "runs", "torus", "models", "model_best.npz"))
+    cfg_path = os.path.join(tmp, "mc_enhanced_cfg.json")
+    with open(cfg_path, "w") as fh:
+        json.dump(cfg, fh)
+
+    # record each refinement's input (the unrefined vertices) on the way
+    calls, refine = [], generate_mc.refine_vertices
+
+    def recording(params, spec, verts, **kw):
+        calls.append((params, spec, verts, kw))
+        return refine(params, spec, verts, **kw)
+
+    generate_mc.refine_vertices = recording
+    try:
+        zero_counts()
+        t0 = time.perf_counter()
+        meshes, stats = generate_mc.main([cfg_path])
+        wall_s = time.perf_counter() - t0
+        launches = read_counts()
+    finally:
+        generate_mc.refine_vertices = refine
+
+    N, steps = cfg["nsamples"], cfg["refine_vertices"]
+    refine_s = stats["mu_refine_s"] + stats["cap_refine_s"]
+    print(f"[enhanced] N={N}: {wall_s:.3f} s; stage1 {stats['stage1_s']:.3f} s, stage2 "
+          f"{stats['stage2_s']:.3f} s, stage3 {stats['stage3_s']:.3f} s, MU {stats['mu_s']:.3f} s "
+          f"(refine {stats['mu_refine_s']:.3f} s), CAP {stats['cap_s']:.3f} s (refine "
+          f"{stats['cap_refine_s']:.3f} s), refine_s {refine_s:.3f}; K1 points "
+          f"{stats['dirs_points']}, faces MU {stats['mu_faces']}, CAP {stats['cap_faces']}; "
+          f"largest refinement move MU {stats['mu_refine_max_voxels']:.4f}, CAP "
+          f"{stats['cap_refine_max_voxels']:.4f} voxels; launches {launches} (phase 5 at "
+          f"N={N_GRID} on the sphere: stage1 {slice_stats['stage1_s']:.3f}, stage2 "
+          f"{slice_stats['stage2_s']:.3f}, stage3 {slice_stats['stage3_s']:.3f}, MU "
+          f"{slice_stats['mu_s']:.3f}, CAP {slice_stats['cap_s']:.3f} s)", flush=True)
+    print("[enhanced] Stats: " + json.dumps(stats))
+    want = {"K1": 1 if stats["dirs_points"] > 0 else 0, "K2": 0, "K3a": 2 * steps, "K3b": 0,
+            "K4": 0, "K5": 0}
+    if launches != want:
+        raise AssertionError(f"launches {launches} != {want}: K3a once a refinement step of each "
+                             f"mesh, K1 by the grid pass")
+    limit = 0.5 + 1e-6 * (N - 1) / 2.0  # half a voxel + 1e-6, in voxels
+    for name in ("mu", "cap"):
+        if not stats[f"{name}_refine_max_voxels"] <= limit:
+            raise AssertionError(f"{name}: refinement moved a vertex "
+                                 f"{stats[f'{name}_refine_max_voxels']} voxels > {limit}")
+    chamfer = check_chamfer(meshes, os.path.join(run["data_dir"], "torus"),
+                            MAX_TORUS_CHAMFER_L1, "[enhanced]")
+    print(f"[enhanced] Chamfer-L1 MU {chamfer['MU']:.6f}, CAP {chamfer['CAP']:.6f}; the JAX "
+          f"package's enhanced torus row MU {JAX_ENHANCED_TORUS_L1['MU']}, CAP "
+          f"{JAX_ENHANCED_TORUS_L1['CAP']} (a record); phase 7's N={RECIPE['resolution']} "
+          f"meshes MU {run['chamfer']['MU']:.6f}, CAP {run['chamfer']['CAP']:.6f}")
+
+    # the MU mesh's unrefined vertices: K3a against the plain version and
+    # both against the plain version in float64
+    params, spec, verts, kw = calls[0]
+    got, want_v, exact = (torch.as_tensor(refine(p, spec, verts, vg_fn=fn, **kw))
+                          for p, fn in ((params, None), (params, vg.vg_reference),
+                                        (float64(params), vg.vg_reference)))
+    failed = []
+    err = projection_errors(got, want_v, exact, failed, "refined vertices")
+    print(f"[enhanced] refine_vertices on the MU mesh's {len(verts)} unrefined vertices, K3a vs "
+          f"the plain version: {json.dumps(err)}")
+    if failed:
+        raise AssertionError("; ".join(failed))
+    return {"launches": launches, "wall_s": wall_s, "refine_s": refine_s, "chamfer": chamfer,
+            "refine_vs_plain": err, "mu_vertices": len(verts),
+            **{k: stats[k] for k in ("stage1_s", "stage2_s", "stage3_s", "mu_s", "cap_s",
+                                     "mu_refine_s", "cap_refine_s", "mu_refine_max_voxels",
+                                     "cap_refine_max_voxels", "dirs_points", "mu_faces",
+                                     "cap_faces")}}
+
+
 KERNELS = {
     "K1": ("vgh", "diffudf_tpu_torch/csrc/vgh.cu", "diffudf_tpu/ops/pallas_vgh.py:55 (_vgh_kernel)"),
     "K2": ("vgh_bwd", "diffudf_tpu_torch/csrc/vgh_bwd.cu",
@@ -1356,6 +1663,8 @@ def main():
         dk = distance_kernel_phase(run["data_dir"], run["params"])
         mesh_run = mesh_train_phase(tmp, run)
         gt = gt_render_phase(tmp, mesh_run["data_dir"])
+        pc = point_cloud_phase(tmp, run)
+        enh = enhanced_phase(tmp, run, stats)
     rows = []
     for key, (name, source, replaces) in KERNELS.items():
         row = {"name": name, "route": "cuda", "source": source, "replaces": replaces}
@@ -1368,13 +1677,15 @@ def main():
                                          "train": run["launches"]["K1"],
                                          "generate_st": render["launches"]["K1"],
                                          "generate_df": figs["torus_pc.ply"]["launches"]["K1"],
-                                         "train_mesh": mesh_run["launches"]["K1"]},
+                                         "train_mesh": mesh_run["launches"]["K1"],
+                                         "generate_pc": pc["launches"]["K1"],
+                                         "generate_mc_enhanced": enh["launches"]["K1"]},
                        max_abs_err=max(t["max_err"].values()), max_err=t["max_err"],
                        **{k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                             "tensor_bound_ms", "fp32_bound_ms", "bytes_moved",
                                             "bound_share")},
                        train_shape=tk["K1"],
-                       figure_shape=dk["k1_figure"])
+                       figure_shape=dk["k1_figure"], pc_shape=pc["times"]["K1"])
         elif key == "K4":
             # the render's march runs the bf16 mode (fast_march); the f32
             # mode's numbers come beside them
@@ -1401,11 +1712,16 @@ def main():
             row["launches_by_path"] = {"train": run["launches"][key],
                                        "train_mesh": mesh_run["launches"][key]}
             row.update(tk[key])
+            if key == "K3a":
+                row["launches_by_path"].update(generate_pc=pc["launches"]["K3a"],
+                                               generate_mc_enhanced=enh["launches"]["K3a"])
+                row["pc_shape"] = pc["times"]["K3a"]
         row["library_ms"] = None
         rows.append(row)
     print(f"[total] {time.perf_counter() - t_start:.2f} s; the mesh-mode training and the GT "
           f"render: {json.dumps({k: v for k, v in mesh_run.items() if k != 'data_dir'})}, "
-          f"{json.dumps(gt)}")
+          f"{json.dumps(gt)}; the point cloud and the enhanced extraction: "
+          f"{json.dumps({k: v for k, v in pc.items() if k != 'times'})}, {json.dumps(enh)}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

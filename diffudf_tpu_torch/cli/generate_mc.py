@@ -9,10 +9,10 @@ w0, model_path (.npz + .spec.json, the JAX package's checkpoint format),
 output_path, algorithm ∈ {meshudf, cap, both, siren}, nsamples (grid N),
 triangulator ∈ {mc33, lewiner33, tets} (optional, default mc33),
 use_pallas (false forces the plain torch path instead of the fused kernel),
-quality ∈ {parity, default, enhanced}.  The ``enhanced`` preset and
-``refine_vertices`` need zero-set reprojection (``extract/refine.py`` in the
-JAX package), which this package does not have yet: they raise
-NotImplementedError.
+quality ∈ {parity, default, enhanced}, refine_vertices (zero-set
+reprojection steps of each mesh's vertices, ``extract/refine.py``: one K3a
+launch a step), taubin_iters.  ``enhanced`` extracts at N ≥ 385 and
+refines each mesh with 2 steps, then 10 Taubin iterations.
 """
 
 from __future__ import annotations
@@ -28,6 +28,7 @@ import torch
 from ..data.mesh_io import Mesh, save_mesh
 from ..extract.cap import extract_mesh_cap
 from ..extract.meshudf import extract_mesh_meshudf
+from ..extract.refine import refine_vertices
 from ..extract.sdf_mc import extract_mesh_signed
 from ..extract.triangulate import DEFAULT_TRIANGULATOR
 from ..fields.siren import SirenSpec
@@ -90,11 +91,16 @@ def run_mc(params, spec, gt_mode, N, output_path, alpha=None, algorithm="meshudf
     or (meshMU, meshCAP).
 
     The knobs are those of the JAX package's ``run_mc`` (see its docstring),
-    without ``mesh``: one device.  ``refine_steps > 0`` raises
-    NotImplementedError (zero-set reprojection is not ported yet).
+    without ``mesh``: one device.  ``refine_steps`` projects each mesh's
+    vertices onto the zero set (``extract.refine.refine_vertices`` at the
+    resolved N; not for the ``siren`` algorithm), then ``taubin_iters``
+    smooths them, in the JAX package's order.
     ``stats``: when given a dict, it receives the grid pass's stage times
     and band sizes (``grid.lattice.extract_fields_sparse``) and the seconds
-    and face counts of the MeshUDF (``mu_*``) and CAP (``cap_*``) host steps.
+    and face counts of the MeshUDF (``mu_*``) and CAP (``cap_*``) steps;
+    with refinement also each mesh's ``*_refine_s`` and its largest
+    displacement in voxels, ``*_refine_max_voxels`` (both included in
+    ``mu_s`` / ``cap_s``).
     """
     N, knobs = resolve_quality(quality, N, dict(
         triangulator=triangulator, refine_steps=refine_steps,
@@ -108,17 +114,20 @@ def run_mc(params, spec, gt_mode, N, output_path, alpha=None, algorithm="meshudf
         raise ValueError(
             f"Invalid algorithm {algorithm!r}; expected one of {VALID_ALGORITHMS}"
         )
-    if gt_mode != "siren" and knobs["refine_steps"]:
-        raise NotImplementedError(
-            "refine_steps > 0 (zero-set vertex reprojection, the 'enhanced' "
-            "quality preset) is not ported yet: ROADMAP.md, 'Modules to port', "
-            "item 'Vertex refinement'"
-        )
+    refine_steps = knobs["refine_steps"]
     ckpt.check_params_match_spec(params, spec)
     if stats is None:
         stats = {}
 
-    def _smooth(verts, faces):
+    def _refine(verts, faces, tag):
+        if gt_mode != "siren" and refine_steps:
+            t0 = time.perf_counter()
+            refined = refine_vertices(params, spec, verts, gt_mode=gt_mode, alpha=alpha, N=N,
+                                      steps=refine_steps)
+            stats[tag + "_refine_s"] = time.perf_counter() - t0
+            move = np.linalg.norm(refined - verts, axis=1).max(initial=0.0)
+            stats[tag + "_refine_max_voxels"] = float(move) * (N - 1) / 2.0
+            verts = refined
         if taubin_iters:
             from ..extract.postprocess import taubin_smooth
 
@@ -129,7 +138,7 @@ def run_mc(params, spec, gt_mode, N, output_path, alpha=None, algorithm="meshudf
         t0 = time.perf_counter()
         verts, faces = _mu_postprocessed(udf, dirs, triangulator,
                                          knobs["mu_face_prune_voxels"], knobs["mu_taubin"])
-        m = Mesh(_smooth(verts, faces), faces)
+        m = Mesh(_refine(verts, faces, "mu"), faces)
         stats["mu_s"] = time.perf_counter() - t0
         stats["mu_faces"] = len(faces)
         return m
@@ -139,7 +148,7 @@ def run_mc(params, spec, gt_mode, N, output_path, alpha=None, algorithm="meshudf
         verts, faces = _cap_postprocessed(udf, dirs, N, triangulator, knobs["cap_signing"],
                                           knobs["cap_face_prune_voxels"],
                                           knobs["cap_taubin"])
-        m = Mesh(_smooth(verts, faces), faces)
+        m = Mesh(_refine(verts, faces, "cap"), faces)
         stats["cap_s"] = time.perf_counter() - t0
         stats["cap_faces"] = len(faces)
         return m

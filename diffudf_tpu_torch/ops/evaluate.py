@@ -33,6 +33,23 @@ def _kernel_ok(spec: SirenSpec, want_hess: bool, device: torch.device) -> bool:
     return want_hess and kernel_spec_ok(spec) and device.type == "cuda"
 
 
+def field_fns(spec: SirenSpec):
+    """-> (vg_fn, vgh_fn), the (f, ∇f) and (f, ∇f, packed H) functions of
+    the per-point projections (``pc/sampler.py``, ``extract/refine.py``).
+
+    For a net the kernels take (:func:`.kernel_io.kernel_spec_ok`) they are
+    the wrappers :func:`.vg.vg` (K3a) and :func:`.vgh.vgh` (K1), which run
+    their plain versions on a CPU tensor; every other net gets the plain
+    Taylor-mode functions of :mod:`..autodiff.ops`.
+    """
+    if kernel_spec_ok(spec):
+        from .vg import vg
+        from .vgh import vgh
+
+        return vg, vgh
+    return value_grad, value_grad_hessian_packed
+
+
 def evaluate_field(
     params,
     spec: SirenSpec,

@@ -8,17 +8,22 @@ preprocesses each committed ``data/demo/<shape>.obj`` with the port's
 package's ``DEFAULT_CONFIG`` recipe.  ``--mode mesh`` (default) keeps each
 ``_t.obj``, so every shape trains from its mesh (the triangle oracle, its
 build overlapped with training); ``--mode pc`` drops it, so every shape
-trains from its point cloud (``onlyPCloud``).  Needs a GPU:
+trains from its point cloud (``onlyPCloud``); ``--mode enhanced`` trains
+from each mesh and extracts with ``"quality": "enhanced"`` (N=385, two
+refinement steps of each mesh's vertices, Taubin 10), the JAX script's
+override.  Needs a GPU:
 
-    python scripts/reproduce_demo_torch.py --out DIR [--mode pc] [--keep-model torus]
+    python scripts/reproduce_demo_torch.py --out DIR [--mode pc|enhanced] [--keep-model torus]
 
-``--config``, ``--no-provenance`` and ``--device cpu`` pass through to
-``cli.quantitative`` (a small config and ``--samples`` make a CPU rehearsal).
+``--config`` (the mode's keys override it), ``--no-provenance`` and
+``--device cpu`` pass through to ``cli.quantitative`` (a small config and
+``--samples`` make a CPU rehearsal).
 
 Writes ``results.csv`` and ``results_provenance.json`` to ``--out`` and
 prints each shape's Chamfer-L1 beside its protocol floor in
 ``results/protocol_floors_demo.json`` and the JAX package's row in
-``results/results_demo.csv`` (mesh) or ``results/results_demo_pc.csv`` (pc),
+``results/results_demo.csv`` (mesh), ``results/results_demo_pc.csv`` (pc) or
+``results/results_demo_enhanced.csv`` (enhanced),
 with the signed gap of each mesh's Chamfer-L1 to the JAX row, and each
 shape's oracle build seconds, swap epoch and bootstrap epochs.
 ``--keep-model`` copies a shape's ``model_best`` checkpoint to ``--out`` as
@@ -38,12 +43,19 @@ REPO = osp.dirname(osp.dirname(osp.abspath(__file__)))
 sys.path.insert(0, REPO)
 
 SHAPES = ("torus", "trefoil", "cloth", "shell", "skirt")
+# per mode: the JAX package's CSV and the config keys it sets
+# (scripts/reproduce_demo.py MODES)
+MODES = {
+    "mesh": ("results_demo.csv", {}),
+    "pc": ("results_demo_pc.csv", {}),
+    "enhanced": ("results_demo_enhanced.csv", {"quality": "enhanced"}),
+}
 
 
 def main(argv=None):
     parser = argparse.ArgumentParser()
     parser.add_argument("--samples", type=int, default=100000)
-    parser.add_argument("--mode", choices=("mesh", "pc"), default="mesh")
+    parser.add_argument("--mode", choices=sorted(MODES), default="mesh")
     parser.add_argument("--out", required=True, help="directory for the results")
     parser.add_argument("--keep-model", action="append", default=[], metavar="SHAPE")
     parser.add_argument("--config", default=None)
@@ -62,8 +74,18 @@ def main(argv=None):
         if args.mode == "pc":
             os.remove(osp.join(shape_dir, f"{shape}_t.obj"))  # point-cloud input
 
+    jax_csv, overrides = MODES[args.mode]
+    config = {}
+    if args.config:
+        with open(args.config) as fh:
+            config = json.load(fh)
+    config.update(overrides)
+    cfg_path = osp.join(work, "cfg.json")
+    with open(cfg_path, "w") as fh:
+        json.dump(config, fh)
+
     exp_dir = osp.join(work, "results")
-    extra = ["--device", args.device] + (["--config", args.config] if args.config else [])
+    extra = ["--device", args.device, "--config", cfg_path]
     all_stats = quantitative.main([dataset, exp_dir] + extra
                                   + (["--no-provenance"] if args.no_provenance else []))
 
@@ -79,7 +101,6 @@ def main(argv=None):
 
     with open(osp.join(REPO, "results", "protocol_floors_demo.json")) as fh:
         floors = {r["shape"]: r for r in json.load(fh)}
-    jax_csv = "results_demo.csv" if args.mode == "mesh" else "results_demo_pc.csv"
     with open(osp.join(REPO, "results", jax_csv)) as fh:
         jax_rows = {r["mesh"]: r for r in csv.DictReader(fh)}
     with open(osp.join(args.out, "results.csv")) as fh:

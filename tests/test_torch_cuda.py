@@ -480,3 +480,79 @@ def test_point_cloud_bootstrap_step_launches_k5_once():
     far = pts[sz.on_surface:sz.on_surface + sz.far].contiguous()
     assert torch.equal(sdf[sz.on_surface:sz.on_surface + sz.far, 0],
                        tmd.min_distance(far, sampler.surface_points))
+
+
+# Projections (pc/sampler.py, extract/refine.py) on the card against the same
+# projections through the plain versions on the card, within the golden
+# point-cloud tolerance (tests/test_golden_pc.py), on the fixture's field: a
+# 3x32x32x1 net the kernels take, positive everywhere (well-conditioned steps).
+PROJ_TOL = 5e-4
+
+
+def _pc_field():
+    import os.path as osp
+
+    g = np.load(osp.join(osp.dirname(__file__), "golden", "pc_golden.npz"))
+    params = params_from_jax([{"w": g[f"w{i}"], "b": g[f"b{i}"]} for i in range(3)], "cuda")
+    return params, SirenSpec(hidden=(32, 32), w0=float(g["freq_w0"])), float(g["alpha"])
+
+
+@pytest.mark.cuda
+def test_project_points_kernels_match_plain_versions():
+    """K3a for each step and K1 for the last, against vg_reference and
+    vgh_reference on the card: positions, steps and normals."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from diffudf_tpu_torch.pc.sampler import project_points
+
+    params, spec, alpha = _pc_field()
+    x0 = torch.as_tensor(np.random.default_rng(2).uniform(-1, 1, (65537, 3)), dtype=torch.float32,
+                         device="cuda")
+    kw = dict(gt_mode="tanh", alpha=alpha, num_steps=3, want_hessian_normals=True)
+    before = (tg.launches, tv.launches)
+    x, step, nrm = project_points(params, spec, x0, **kw)
+    torch.cuda.synchronize()
+    assert (tg.launches, tv.launches) == (before[0] + 2, before[1] + 1)
+    px, pstep, pnrm = project_points(params, spec, x0, vg_fn=tg.vg_reference,
+                                     vgh_fn=tv.vgh_reference, **kw)
+    assert float((x - px).abs().max()) <= PROJ_TOL
+    assert float((step - pstep).abs().max()) <= PROJ_TOL
+    assert float(((nrm * pnrm).sum(1).abs() > 0.999).float().mean()) >= 0.99
+
+
+@pytest.mark.cuda
+def test_refine_vertices_kernel_matches_plain_version():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from diffudf_tpu_torch.extract.refine import refine_vertices
+
+    params, spec, alpha = _pc_field()
+    verts = np.random.default_rng(3).uniform(-1, 1, (20001, 3)).astype(np.float32)
+    kw = dict(gt_mode="tanh", alpha=alpha, N=256, steps=2)
+    before = tg.launches
+    got = refine_vertices(params, spec, verts, **kw)
+    assert tg.launches == before + 2
+    want = refine_vertices(params, spec, verts, vg_fn=tg.vg_reference, **kw)
+    assert np.abs(got - want).max() <= PROJ_TOL
+    assert np.linalg.norm(got - verts, axis=1).max() <= 0.5 * 2 / 255 + 1e-6
+
+
+@pytest.mark.cuda
+def test_point_cloud_round_launches():
+    """One round of generate_point_cloud at ref_steps 3: K3a twice, K1 once,
+    as its stats record them."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import warnings
+
+    from diffudf_tpu_torch.pc.sampler import generate_point_cloud
+
+    params, spec, alpha = _pc_field()
+    stats = {}
+    before = (tg.launches, tv.launches)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        generate_point_cloud(params, spec, gt_mode="tanh", alpha=alpha, num_steps=3,
+                             num_points=10000, surf_thresh=0.2, max_iter=1, stats=stats)
+    assert (tg.launches - before[0], tv.launches - before[1]) == (2, 1)
+    assert (stats["rounds"], stats["k3a_launches"], stats["k1_launches"]) == (1, 2, 1)

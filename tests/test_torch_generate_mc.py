@@ -114,12 +114,37 @@ def test_run_mc_rejects_what_it_cannot_do(tmp_path):
     spec = SirenSpec(hidden=(32, 32))
     params = params_from_jax(init_siren(spec, np.random.default_rng(0)), "cpu")
     out = str(tmp_path / "x.ply")
-    with pytest.raises(NotImplementedError, match="Vertex refinement"):
-        tmc.run_mc(params, spec, "tanh", 16, out, 100.0, quality="enhanced")
     with pytest.raises(ValueError, match="Invalid algorithm"):
         tmc.run_mc(params, spec, "tanh", 16, out, 100.0, algorithm="bogus")
     with pytest.raises(ValueError, match="layer dims"):
         tmc.run_mc(params, SirenSpec(hidden=(32, 32, 32)), "tanh", 16, out, 100.0)
+
+
+def test_run_mc_enhanced_refines_at_385(tmp_path, monkeypatch):
+    """quality="enhanced" resolves to N=385 and reaches the refinement (2
+    steps, then Taubin 10) of each mesh; the grid pass and the refinement
+    are stubbed so that nothing is extracted at 385 on the CPU."""
+    spec = SirenSpec(hidden=(32, 32))
+    params = params_from_jax(init_siren(spec, np.random.default_rng(0)), "cpu")
+    udf, dirs, _ = _analytic_fields()
+    calls = []
+
+    def fields(params, spec, N, *a, **k):
+        calls.append(("grid", N))
+        return udf, dirs
+
+    def refine(params, spec, verts, *, N, steps, **k):
+        calls.append(("refine", N, steps))
+        return verts + np.float32(1e-3)
+
+    monkeypatch.setattr(tmc, "extract_fields_sparse", fields)
+    monkeypatch.setattr(tmc, "refine_vertices", refine)
+    stats = {}
+    mesh = tmc.run_mc(params, spec, "tanh", 256, str(tmp_path / "e.ply"), 100.0,
+                      algorithm="meshudf", quality="enhanced", stats=stats)
+    assert calls == [("grid", 385), ("refine", 385, 2)]
+    assert len(mesh.faces) > 500 and np.isfinite(mesh.vertices).all()
+    np.testing.assert_allclose(stats["mu_refine_max_voxels"], 1e-3 * 3 ** 0.5 * 192, rtol=1e-3)
 
 
 def test_quality_presets_match_jax():
@@ -130,10 +155,10 @@ def test_quality_presets_match_jax():
 
 
 def test_port_imports_neither_jax_nor_the_jax_package(tmp_path):
-    """Every module of the port imports, and a small render, slice figures
-    (``generate_df`` on a point cloud and on a mesh) and a one-shape
-    ``quantitative`` sweep run, without jax or the JAX package, and without
-    matplotlib and PIL."""
+    """Every module of the port imports, and a small render, point cloud,
+    slice figures (``generate_df`` on a point cloud and on a mesh) and a
+    one-shape ``quantitative`` sweep run, without jax or the JAX package, and
+    without matplotlib and PIL."""
     g = np.load(os.path.join(REPO, "tests", "golden", "st_image_golden.npz"))
     spec = SirenSpec(hidden=(64, 64, 64), w0=30.0)
     model = str(tmp_path / "model.npz")
@@ -147,6 +172,10 @@ def test_port_imports_neither_jax_nor_the_jax_package(tmp_path):
                              "light_position": [1.0, 2.0, 4.0], "max_iterations": 60,
                              "plot_curvatures": "mean", "output_path": str(tmp_path / "st.png")},
     }))
+    (tmp_path / "pc.json").write_text(json.dumps({
+        "gt_mode": "tanh", "alpha": 10.0, "model_path": model, "w0": spec.w0,
+        "hidden_layer_nodes": list(spec.hidden), "nsamples": 300, "ref_steps": 3,
+        "surf_thresh": 0.01, "max_iter": 3, "output_path": str(tmp_path / "pc.ply")}))
     (tmp_path / "sweep.json").write_text(json.dumps({
         "num_epochs": 2, "s1_epochs": 1, "warmup_epochs": 0, "batch_size": 300,
         "resolution": 16, "network": {"hidden_layer_nodes": [32, 32, 32], "w0": 30}}))
@@ -155,9 +184,10 @@ def test_port_imports_neither_jax_nor_the_jax_package(tmp_path):
         "for m in pkgutil.walk_packages(diffudf_tpu_torch.__path__, 'diffudf_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "from diffudf_tpu_torch.cli import generate_df, generate_st, preprocess, quantitative\n"
-        "from diffudf_tpu_torch.cli import train\n"
+        "from diffudf_tpu_torch.cli import generate_pc, train\n"
         "tmp = sys.argv[2]\n"
         "generate_st.main([sys.argv[1], '--device', 'cpu'])\n"
+        "generate_pc.main([tmp + '/pc.json', '--device', 'cpu'])\n"
         "preprocess.preprocess_mesh(tmp + '/data/torus', 'data/demo/torus.obj', 2000)\n"
         "os.replace(tmp + '/data/torus/torus_t.obj', tmp + '/torus_t.obj')\n"
         "for geo in ('/data/torus/torus_pc.ply', '/torus_t.obj'):\n"
@@ -177,21 +207,21 @@ def test_port_imports_neither_jax_nor_the_jax_package(tmp_path):
     assert out.returncode == 0, out.stderr
     loaded = set(out.stdout.splitlines()[-1].split())  # after the CLIs' Stats lines
     assert len(loaded) > 20
-    assert os.path.exists(tmp_path / "st.png")
+    assert os.path.exists(tmp_path / "st.png") and os.path.exists(tmp_path / "pc.ply")
     for name in ("distance_fields.png", "pred_grad.png"):
         assert os.path.exists(tmp_path / "df" / name)
         assert os.path.exists(tmp_path / "sweep" / "torus" / "reconstructions" / name)
     with open(tmp_path / "sweep" / "results.csv") as fh:
         assert len(fh.read().splitlines()) == 2
-    # the training, render and evaluation slices' modules are among those
-    # walked and imported
+    # the training, render, evaluation and point-cloud slices' modules are
+    # among those walked and imported
     for name in ("cli.train", "cli.preprocess", "config", "data.mesh_distance",
                  "data.normalize", "data.oracle_cache", "data.sampling", "ops.kernel_io",
                  "ops.vg", "train.losses", "train.loop", "train.schedule", "utils.metrics",
                  "autodiff.curvature", "cli.generate_st", "ops.value", "render.camera",
                  "render.png", "render.shading", "render.tracer", "cli.generate_df",
                  "cli.quantitative", "eval.chamfer", "grid.slices", "ops.min_distance",
-                 "utils.drift"):
+                 "utils.drift", "pc.sampler", "extract.refine", "cli.generate_pc"):
         assert "diffudf_tpu_torch." + name in loaded, name
 
 
