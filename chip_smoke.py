@@ -129,9 +129,13 @@ Phases, in order, each printing its seconds:
                 alpha 10; gates: K3a launched (ref_steps - 1) times a round
                 and K1 once a round, at least 100,000 finite points in
                 [-1, 1]^3 with unit normals; then the first round's
-                candidates projected on K3a + K1 and on the plain versions
-                on the card (positions and steps within 5e-4, keep masks
-                equal off the borderline rows, normals |cos| > 0.999 on 99%),
+                candidates projected on K3a + K1, on the plain versions and
+                on the plain versions in float64, all on the card (positions
+                and steps: the kernels' max and RMS distance from float64 at
+                most WITNESS times the plain version's, and their max
+                distance from the plain version at most WITNESS times the
+                plain version's max distance from float64; keep masks equal
+                off the borderline rows, normals |cos| > 0.999 on 99%),
                 K3a's and K1's times at that shape beside their bounds, and
                 the cloud against torus_t.obj: median exact distance (the
                 brute sweep's closest-point test) within 2e-3, median |cos|
@@ -145,8 +149,9 @@ Phases, in order, each printing its seconds:
                 twice a mesh, K1 by the grid pass, every refinement move
                 within half a voxel (+ 1e-6), both meshes' Chamfer-L1
                 within the torus protocol floor, and the MU mesh's
-                unrefined vertices refined on K3a against the plain version
-                within 5e-4; prints the Stats line beside phase 5's and the
+                unrefined vertices refined on K3a, on the plain version and
+                on the plain version in float64, under phase 15's gates;
+                prints the Stats line beside phase 5's and the
                 Chamfer beside the JAX package's enhanced torus row.
 
 Then a ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}`` line.
@@ -237,9 +242,14 @@ MESH_TOL = 1e-5
 CHAMFER_RTOL = {"L1": 1e-6, "L2": 1e-4, "NC": 1e-4}
 # Phases 15 and 16: configs/pc_cfg.json's and configs/mc_enhanced_cfg.json's
 # keys on the torus of phase 7 at its alpha 10 (their alpha 100 is the
-# beetle's).  The projection on the kernels against the same projection on
-# the plain versions within the golden point-cloud tolerance
-# (tests/test_golden_pc.py); the point cloud's median exact distance to the
+# beetle's).  A projection's last step sqrt(|f|/alpha) turns float32 noise
+# in f near the zero set into moves of several 1e-4, so the projection on
+# the kernels is held to the same projection in float64 (WITNESS times the
+# float32 plain version's distance) and to the float32 plain version (at
+# most WITNESS times the plain version's own largest distance from float64);
+# the rows beyond the golden point-cloud tolerance PROJ_TOL
+# (tests/test_golden_pc.py) from the plain version are printed, no gate.
+# The point cloud's median exact distance to the
 # normalised mesh (the JAX package's dense-point-cloud field error is about
 # 1e-3) and the median |cos| of its normals against the nearest triangle's
 # (tests/test_render_pc.py::test_generate_point_cloud); the JAX package's
@@ -785,7 +795,8 @@ def score_meshes(meshes, cloud, chamfer):
 
 def witness(name, got, want, exact, failed, tag="[train-kernels]"):
     """Print and gate got's max and RMS distance from the float64 exact
-    values against WITNESS times the float32 plain version's."""
+    values against WITNESS times the float32 plain version's; -> (max, RMS),
+    each as (kernel, plain)."""
     e_k, e_p = (got.double() - exact).abs(), (want.double() - exact).abs()
     mx, rms = (float(e_k.max()), float(e_p.max())), (
         float(e_k.square().mean().sqrt()), float(e_p.square().mean().sqrt()))
@@ -795,6 +806,7 @@ def witness(name, got, want, exact, failed, tag="[train-kernels]"):
         if not k <= WITNESS * p:
             failed.append(f"{name}: kernel's {what} distance from float64 {k} > "
                           f"{WITNESS} x the plain version's {p}")
+    return mx, rms
 
 
 @phase("training kernels")
@@ -1369,14 +1381,6 @@ def gt_render_phase(tmp, data_dir):
     return {"render_s": stats["render_s"], **p}
 
 
-def zero_counts():
-    """Set every kernel's launch count to 0."""
-    from diffudf_tpu_torch.ops import min_distance, value, vg, vgh
-
-    vgh.launches = vgh.bwd_launches = vg.launches = vg.bwd_launches = value.launches = 0
-    min_distance.launches = 0
-
-
 def read_counts():
     from diffudf_tpu_torch.ops import min_distance, value, vg, vgh
 
@@ -1399,33 +1403,21 @@ def nearest_triangles(queries, tris, tile=256):
     return torch.cat(dist), torch.cat(idx)
 
 
-def float64(params):
-    return [{k: v.double() for k, v in layer.items()} for layer in params]
-
-
-def projection_errors(got, plain, exact, failed, name):
-    """A projection's rows on the kernels against the plain versions, and
-    both against the plain versions in float64; -> the errors by row.
-
-    Where a projection lands on the zero set, its last step sqrt(|f|/alpha)
-    turns float32 noise in f into steps of up to several 1e-4 in any float32
-    arithmetic (the plain version's distance from float64 shows it), so the
-    kernels are held to float64 as WITNESS times the plain version's
-    distance (max and RMS); their distance from the plain version, and the
-    rows beyond PROJ_TOL of it, are printed."""
+def projection_errors(got, plain, exact, failed, name, tag):
+    """A projection on the kernels against the plain versions and both
+    against the plain versions in float64 (:func:`witness`); the kernels'
+    largest distance from the plain version may be at most WITNESS times
+    the plain version's largest distance from float64.  Prints the distance
+    from the plain version by row and the rows beyond PROJ_TOL of it."""
     n = len(got)
     d = (got - plain).abs().reshape(n, -1).max(1).values
-    e_k = (got.double() - exact).abs().reshape(n, -1).max(1).values
-    e_p = (plain.double() - exact).abs().reshape(n, -1).max(1).values
+    mx, rms = witness(name, got, plain, exact, failed, tag)
     out = {"vs_plain_max": float(d.max()), "vs_plain_median": float(d.median()),
-           "rows_beyond_tol": int((d > PROJ_TOL).sum()),
-           "f64_max": (float(e_k.max()), float(e_p.max())),
-           "f64_rms": (float(e_k.square().mean().sqrt()), float(e_p.square().mean().sqrt()))}
-    for what in ("f64_max", "f64_rms"):
-        k, p = out[what]
-        if not k <= WITNESS * p:
-            failed.append(f"{name}: the kernels' {what} distance from float64 {k} > "
-                          f"{WITNESS} x the plain version's {p}")
+           "rows_beyond_tol": int((d > PROJ_TOL).sum()), "f64_max": mx, "f64_rms": rms}
+    if not out["vs_plain_max"] <= WITNESS * mx[1]:
+        failed.append(f"{name}: the kernels' distance from the plain version "
+                      f"{out['vs_plain_max']} > {WITNESS} x the plain version's from float64 "
+                      f"{mx[1]}")
     return out
 
 
@@ -1438,7 +1430,7 @@ def point_cloud_phase(tmp, run):
     from diffudf_tpu_torch.data.mesh_io import load_obj, load_point_cloud
     from diffudf_tpu_torch.data.mesh_distance import triangles_from_mesh
     from diffudf_tpu_torch.fields.siren import SirenSpec
-    from diffudf_tpu_torch.ops import vg, vgh
+    from diffudf_tpu_torch.ops import min_distance, value, vg, vgh
     from diffudf_tpu_torch.pc.sampler import project_points
 
     with open(PC_CONFIG) as fh:
@@ -1449,7 +1441,8 @@ def point_cloud_phase(tmp, run):
     with open(cfg_path, "w") as fh:
         json.dump(cfg, fh)
 
-    zero_counts()
+    vgh.launches = vgh.bwd_launches = vg.launches = vg.bwd_launches = value.launches = 0
+    min_distance.launches = 0
     t0 = time.perf_counter()
     pc, stats = generate_pc.main([cfg_path])
     wall_s = time.perf_counter() - t0
@@ -1487,11 +1480,12 @@ def point_cloud_phase(tmp, run):
     plain = dict(vg_fn=vg.vg_reference, vgh_fn=vgh.vgh_reference)
     got = project_points(params, spec, x0, **kw)
     want_p = project_points(params, spec, x0, **plain, **kw)
-    exact = project_points(float64(params), spec, x0.double(), **plain, **kw)
+    p64 = [{k: v.double() for k, v in layer.items()} for layer in params]
+    exact = project_points(p64, spec, x0.double(), **plain, **kw)
     torch.cuda.synchronize()
     proj, failed = {}, []
     for k, a, b, e in zip(("positions", "steps"), got, want_p, exact):
-        proj[k] = projection_errors(a, b, e, failed, k)
+        proj[k] = projection_errors(a, b, e, failed, k, "[pc]")
     keep = [((x.abs() <= 1).all(1) & (st < cfg["surf_thresh"])) for x, st, _ in (got, want_p)]
     border = (((want_p[0].abs() - 1).abs() < 1e-3).any(1)
               | ((want_p[1] - cfg["surf_thresh"]).abs() < 1e-3))
@@ -1555,7 +1549,7 @@ def enhanced_phase(tmp, run, slice_stats):
     trained torus; then the MU mesh's refinement on K3a against the plain
     version."""
     from diffudf_tpu_torch.cli import generate_mc
-    from diffudf_tpu_torch.ops import vg
+    from diffudf_tpu_torch.ops import min_distance, value, vg, vgh
 
     with open(ENHANCED_CONFIG) as fh:
         cfg = json.load(fh)
@@ -1574,7 +1568,8 @@ def enhanced_phase(tmp, run, slice_stats):
 
     generate_mc.refine_vertices = recording
     try:
-        zero_counts()
+        vgh.launches = vgh.bwd_launches = vg.launches = vg.bwd_launches = value.launches = 0
+        min_distance.launches = 0
         t0 = time.perf_counter()
         meshes, stats = generate_mc.main([cfg_path])
         wall_s = time.perf_counter() - t0
@@ -1615,11 +1610,12 @@ def enhanced_phase(tmp, run, slice_stats):
     # the MU mesh's unrefined vertices: K3a against the plain version and
     # both against the plain version in float64
     params, spec, verts, kw = calls[0]
+    p64 = [{k: v.double() for k, v in layer.items()} for layer in params]
     got, want_v, exact = (torch.as_tensor(refine(p, spec, verts, vg_fn=fn, **kw))
                           for p, fn in ((params, None), (params, vg.vg_reference),
-                                        (float64(params), vg.vg_reference)))
+                                        (p64, vg.vg_reference)))
     failed = []
-    err = projection_errors(got, want_v, exact, failed, "refined vertices")
+    err = projection_errors(got, want_v, exact, failed, "refined vertices", "[enhanced]")
     print(f"[enhanced] refine_vertices on the MU mesh's {len(verts)} unrefined vertices, K3a vs "
           f"the plain version: {json.dumps(err)}")
     if failed:

@@ -24,8 +24,7 @@ import torch
 
 from ..fields.siren import SirenSpec
 from ..fields.transforms import inverse_map
-from ..ops.evaluate import field_fns
-from ..pc.sampler import unit
+from ..ops.evaluate import field_fns, unit
 
 
 @torch.no_grad()

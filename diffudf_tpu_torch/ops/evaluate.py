@@ -33,6 +33,18 @@ def _kernel_ok(spec: SirenSpec, want_hess: bool, device: torch.device) -> bool:
     return want_hess and kernel_spec_ok(spec) and device.type == "cuda"
 
 
+def unit(g: torch.Tensor) -> torch.Tensor:
+    """g / max(‖g‖, 1e-12), row by row: the projections' step direction."""
+    return g / torch.clamp(torch.linalg.norm(g, dim=-1, keepdim=True), min=1e-12)
+
+
+def projection_launches() -> tuple[int, int]:
+    """-> (K3a, K1) launches so far, the counts of :mod:`.vg` and :mod:`.vgh`."""
+    from . import vg, vgh
+
+    return vg.launches, vgh.launches
+
+
 def field_fns(spec: SirenSpec):
     """-> (vg_fn, vgh_fn), the (f, ∇f) and (f, ∇f, packed H) functions of
     the per-point projections (``pc/sampler.py``, ``extract/refine.py``).

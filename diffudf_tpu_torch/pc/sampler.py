@@ -32,14 +32,7 @@ import torch
 from ..autodiff.eigh3 import top_eigenvector_packed
 from ..fields.siren import SirenSpec
 from ..fields.transforms import inverse_map
-from ..ops import vg as k3a
-from ..ops import vgh as k1
-from ..ops.evaluate import field_fns
-
-
-def unit(g: torch.Tensor) -> torch.Tensor:
-    """g / max(‖g‖, 1e-12), row by row."""
-    return g / torch.clamp(torch.linalg.norm(g, dim=-1, keepdim=True), min=1e-12)
+from ..ops.evaluate import field_fns, projection_launches, unit
 
 
 @torch.no_grad()
@@ -95,8 +88,6 @@ def generate_point_cloud(
     surf_thresh: float = 0.01,
     max_iter: int = 1000,
     seed: int = 0,
-    vg_fn=None,
-    vgh_fn=None,
     stats: dict | None = None,
 ):
     """-> (points (≥num_points, 3), normals) as float32 numpy arrays, unless
@@ -113,7 +104,7 @@ def generate_point_cloud(
     found = torch.zeros((0, 3), device=device)
     found_normals = torch.zeros((0, 3), device=device)
     record = stats is not None
-    counts0 = (k3a.launches, k1.launches)
+    counts0 = projection_launches()
     candidates, kept, project_s = [], [], 0.0
 
     def uniform(n):
@@ -133,7 +124,7 @@ def generate_point_cloud(
             t0 = time.perf_counter()
         x, step, nrm = project_points(
             params, spec, samples, gt_mode=gt_mode, alpha=alpha, num_steps=num_steps,
-            want_hessian_normals=hessian_normals, vg_fn=vg_fn, vgh_fn=vgh_fn,
+            want_hessian_normals=hessian_normals,
         )
         if record:
             _sync(device)
@@ -149,9 +140,9 @@ def generate_point_cloud(
             break
 
     if record:
+        k3a_launches, k1_launches = (b - a for a, b in zip(counts0, projection_launches()))
         stats.update(rounds=len(candidates), candidates=candidates, kept=kept,
-                     project_s=project_s, k3a_launches=k3a.launches - counts0[0],
-                     k1_launches=k1.launches - counts0[1])
+                     project_s=project_s, k3a_launches=k3a_launches, k1_launches=k1_launches)
     if len(found) < num_points:
         warnings.warn(
             f"Max iterations reached. Only sampled {len(found)} surface points.",
