@@ -152,7 +152,33 @@ Phases, in order, each printing its seconds:
                 unrefined vertices refined on K3a, on the plain version and
                 on the plain version in float64, under phase 15's gates;
                 prints the Stats line beside phase 5's and the
-                Chamfer beside the JAX package's enhanced torus row.
+                Chamfer beside the JAX package's enhanced torus row;
+ 17. dp train — data-parallel training (``diffudf_tpu_torch.parallel``):
+                2 ranks on cuda:0 over gloo (``run_group``), each drawing
+                its 4,995 + 4,995 + 4,995 rows of the recipe's batch of
+                phase 7's torus; gates: step 1's terms (1e-5 relative) and
+                gradients (phase 8's GTOL form) against the single-rank
+                step on the union of the two ranks' batches, K1, K2, K3a
+                and K3b launched once each by every rank's step; then
+                ``cli.train.setup_train`` on the 2 ranks cut to 30 s1 + 10
+                s2 epochs: K2, K3a, K3b once per s1 step on every rank (K1
+                also, plus the figure's on rank 0), finite losses, params
+                and best params equal bit for bit on both ranks, rank 0
+                alone writing; then one fallback step on 4 ranks (9,990
+                divides by no 4): the RuntimeWarning, terms and gradients
+                against the single-device step on the same batch; then a
+                one-rank NCCL group (start, one all-reduce, destroy);
+                prints each rank's s1 ms and its gradient all-reduce's ms;
+ 18. sharded serving — one launch of 2 ranks on cuda:0: ``generate_mc``
+                with ``shard_grid`` on phase 4's sphere (N=256, "both"; the
+                gathered udf and dirs against phase 5's grid pass at phase
+                3's K1 tolerances, both meshes' Chamfer-L1 within phase 5's
+                limit), ``generate_st`` with ``shard_rays`` on phase 9's
+                config (hit pixels against phase 9's render: at most 5% of
+                the hits differ), ``generate_pc`` with ``shard_points`` on
+                phase 15's config (phase 15's distance and normal gates,
+                max |delta| against phase 15's cloud printed); each rank's
+                launches by path.
 
 Then a ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}`` line.
 Any failed phase raises, and the script exits non-zero without those two
@@ -257,6 +283,10 @@ CHAMFER_RTOL = {"L1": 1e-6, "L2": 1e-4, "NC": 1e-4}
 # another schedule, a record, not a gate).
 PC_CONFIG = os.path.join(REPO, "configs", "pc_cfg.json")
 ENHANCED_CONFIG = os.path.join(REPO, "configs", "mc_enhanced_cfg.json")
+# Phase 17: the recipe cut to 30 s1 + 10 s2 epochs on 2 ranks; step 1's
+# terms within DP_TERM_RTOL of the single-rank step on the union batch
+DP_EPOCHS = {"num_epochs": 40, "s1_epochs": 30, "warmup_epochs": 10}
+DP_TERM_RTOL = 1e-5
 PROJ_TOL = 5e-4
 MAX_PC_FIELD_ERROR = 2e-3
 MIN_PC_NORMAL_COS = 0.95
@@ -535,7 +565,7 @@ def slice_phase(tmp, model_path):
     with open(cfg_path, "w") as fh:
         json.dump(cfg, fh)
 
-    vgh.launches = 0
+    zero_counts()
     (mesh_mu, mesh_cap), stats = generate_mc.main([cfg_path])
     launches = vgh.launches
 
@@ -551,20 +581,27 @@ def slice_phase(tmp, model_path):
     if stats["active_block_share"] > MAX_ACTIVE_BLOCK_SHARE:
         raise AssertionError(f"active-block share {stats['active_block_share']} > "
                              f"{MAX_ACTIVE_BLOCK_SHARE}: the fixture field is not fitted")
+    chamfer = sphere_chamfer((mesh_mu, mesh_cap), "[slice]")
+    return stats, launches, chamfer
+
+
+def sphere_chamfer(meshes, tag):
+    """Both meshes' Chamfer-L1 against 100k points of the sphere, each
+    within MAX_CHAMFER_L1; -> {name: Chamfer-L1}."""
     rng = np.random.default_rng(2)
     ref = RADIUS * unit_sphere_points(100000, rng)
     chamfer = {}
-    for name, m in (("MU", mesh_mu), ("CAP", mesh_cap)):
+    for name, m in zip(("MU", "CAP"), meshes):
         v, f = np.asarray(m.vertices, np.float64), np.asarray(m.faces)
         if len(f) == 0 or not np.isfinite(v).all() or v.shape[1] != 3:
             raise AssertionError(f"{name} mesh is empty or not finite")
         chamfer[name] = chamfer_l1(sample_mesh(v, f, 100000, rng), ref)
-    print(f"[slice] Chamfer-L1 vs 100k sphere points: MU {chamfer['MU']:.5f}, "
+    print(f"{tag} Chamfer-L1 vs 100k sphere points: MU {chamfer['MU']:.5f}, "
           f"CAP {chamfer['CAP']:.5f} (bound {MAX_CHAMFER_L1})")
     for name, c in chamfer.items():
         if not c <= MAX_CHAMFER_L1:
             raise AssertionError(f"{name} Chamfer-L1 {c} > {MAX_CHAMFER_L1}")
-    return stats, launches
+    return chamfer
 
 
 @phase("timing")
@@ -663,8 +700,8 @@ def train_phase(tmp):
     with open(cfg_path, "w") as fh:
         json.dump(cfg, fh)
 
-    vgh.launches = vgh.bwd_launches = vg.launches = vg.bwd_launches = 0
-    min_distance.launches = min_distance.queries = 0
+    zero_counts()
+    min_distance.queries = 0
     (pipeline_s, meshes, state), stats = train.main([cfg_path])
     launches = {"K1": vgh.launches, "K2": vgh.bwd_launches, "K3a": vg.launches,
                 "K3b": vg.bwd_launches, "K5": min_distance.launches}
@@ -939,8 +976,8 @@ def render_phase(tmp):
     with open(cfg_path, "w") as fh:
         json.dump(cfg, fh)
 
-    vgh.launches = vgh.bwd_launches = vg.launches = vg.bwd_launches = 0
-    value.launches = value.points = 0
+    zero_counts()
+    value.points = 0
     value.launches_at.clear()
     img, stats = generate_st.main([cfg_path])
     launches = {"K1": vgh.launches, "K2": vgh.bwd_launches, "K3a": vg.launches,
@@ -1000,6 +1037,7 @@ def render_phase(tmp):
     if hb.sum() != passes[0]["hits"] or flips > MAX_HIT_FLIPS * hb.sum():
         raise AssertionError(f"{flips} of {int(hb.sum())} hit pixels differ between the marches")
     return {"launches": launches, "cfg": cfg, "model_path": model_path, "mrays_per_s": mrays,
+            "img": img,
             "passes": passes, "flips": flips}
 
 
@@ -1136,8 +1174,7 @@ def figures_phase(tmp, data_dir):
     out = {}
     for geometry in ("torus_pc.ply", "torus_t.obj"):
         out_dir = os.path.join(tmp, "figures", geometry.replace(".", "_"))
-        vgh.launches = vgh.bwd_launches = vg.launches = vg.bwd_launches = value.launches = 0
-        min_distance.launches = 0
+        zero_counts()
         stats = generate_df.main([os.path.join(data_dir, geometry), model_path, out_dir,
                                   "-w", str(FIGURE_WIDTH), "-a", str(RECIPE["alpha"])])
         launches = {"K1": vgh.launches, "K2": vgh.bwd_launches, "K3a": vg.launches,
@@ -1271,8 +1308,7 @@ def mesh_train_phase(tmp, pc_run):
     with open(cfg_path, "w") as fh:
         json.dump(cfg, fh)
 
-    vgh.launches = vgh.bwd_launches = vg.launches = vg.bwd_launches = 0
-    min_distance.launches = 0
+    zero_counts()
     (pipeline_s, meshes, _), stats = train.main([cfg_path])
     launches = {"K1": vgh.launches, "K2": vgh.bwd_launches, "K3a": vg.launches,
                 "K3b": vg.bwd_launches, "K5": min_distance.launches}
@@ -1381,6 +1417,13 @@ def gt_render_phase(tmp, data_dir):
     return {"render_s": stats["render_s"], **p}
 
 
+def zero_counts():
+    from diffudf_tpu_torch.ops import min_distance, value, vg, vgh
+
+    vgh.launches = vgh.bwd_launches = vg.launches = vg.bwd_launches = value.launches = 0
+    min_distance.launches = 0
+
+
 def read_counts():
     from diffudf_tpu_torch.ops import min_distance, value, vg, vgh
 
@@ -1427,10 +1470,8 @@ def point_cloud_phase(tmp, run):
     torus; then the first round's projection on the kernels against the
     plain versions, and the cloud against the normalised mesh."""
     from diffudf_tpu_torch.cli import generate_pc
-    from diffudf_tpu_torch.data.mesh_io import load_obj, load_point_cloud
-    from diffudf_tpu_torch.data.mesh_distance import triangles_from_mesh
     from diffudf_tpu_torch.fields.siren import SirenSpec
-    from diffudf_tpu_torch.ops import min_distance, value, vg, vgh
+    from diffudf_tpu_torch.ops import vg, vgh
     from diffudf_tpu_torch.pc.sampler import project_points
 
     with open(PC_CONFIG) as fh:
@@ -1441,8 +1482,7 @@ def point_cloud_phase(tmp, run):
     with open(cfg_path, "w") as fh:
         json.dump(cfg, fh)
 
-    vgh.launches = vgh.bwd_launches = vg.launches = vg.bwd_launches = value.launches = 0
-    min_distance.launches = 0
+    zero_counts()
     t0 = time.perf_counter()
     pc, stats = generate_pc.main([cfg_path])
     wall_s = time.perf_counter() - t0
@@ -1512,8 +1552,22 @@ def point_cloud_phase(tmp, run):
         print(f"[pc] {name} at {len(x1)} points: {ms:.3f} ms (median of 20), plain "
               f"{plain_ms:.3f} ms; {bounds_text(ms, b)}")
 
-    # against the normalised mesh: exact distance and the nearest triangle's
-    # normal; the 100k-point cloud for the Chamfer-L1
+    field_err, normal_cos, oriented, chamfer = cloud_against_mesh(pts, nrm, run, "[pc]")
+    return {"launches": launches, "points": n, "rounds": rounds, "kept": stats["kept"],
+            "project_s": stats["project_s"], "orient_s": stats["orient_s"],
+            "total_s": stats["total_s"], "projection_vs_plain": proj, "times": times,
+            "field_error_median": field_err, "normal_cos_median": normal_cos,
+            "oriented_share": oriented, "chamfer_l1": chamfer, "cloud": pts}
+
+
+def cloud_against_mesh(pts, nrm, run, tag):
+    """A torus point cloud against the normalised mesh (exact distance and
+    the nearest triangle's normal: phase 15's gates) and its Chamfer-L1
+    against the 100k-point cloud; -> (median distance, median |cos|,
+    oriented share, Chamfer-L1)."""
+    from diffudf_tpu_torch.data.mesh_distance import triangles_from_mesh
+    from diffudf_tpu_torch.data.mesh_io import load_obj, load_point_cloud
+
     mesh = load_obj(os.path.join(run["data_dir"], "torus_t.obj"))
     tris = triangles_from_mesh(mesh.vertices, mesh.faces)
     q = torch.as_tensor(pts, device="cuda")
@@ -1526,7 +1580,7 @@ def point_cloud_phase(tmp, run):
     oriented = float(max((dots > 0).float().mean(), (dots < 0).float().mean()))
     cloud = load_point_cloud(os.path.join(run["data_dir"], "torus_pc.ply")).points
     chamfer = chamfer_l1(pts.astype(np.float64), cloud)
-    print(f"[pc] against torus_t.obj ({len(tris)} triangles): median distance {field_err:.3e} "
+    print(f"{tag} against torus_t.obj ({len(tris)} triangles): median distance {field_err:.3e} "
           f"(bound {MAX_PC_FIELD_ERROR}), max {float(dist.max()):.3e}; median |cos| to the "
           f"nearest triangle's normal {normal_cos:.4f} (bound {MIN_PC_NORMAL_COS}); one sign of "
           f"n . n_tri on {oriented:.4f} (bound {MIN_ORIENTED_SHARE}); Chamfer-L1 against the "
@@ -1536,11 +1590,7 @@ def point_cloud_phase(tmp, run):
             and oriented >= MIN_ORIENTED_SHARE):
         raise AssertionError(f"point cloud: median distance {field_err}, median |cos| "
                              f"{normal_cos}, oriented share {oriented}")
-    return {"launches": launches, "points": n, "rounds": rounds, "kept": stats["kept"],
-            "project_s": stats["project_s"], "orient_s": stats["orient_s"],
-            "total_s": stats["total_s"], "projection_vs_plain": proj, "times": times,
-            "field_error_median": field_err, "normal_cos_median": normal_cos,
-            "oriented_share": oriented, "chamfer_l1": chamfer}
+    return field_err, normal_cos, oriented, chamfer
 
 
 @phase("enhanced")
@@ -1549,7 +1599,7 @@ def enhanced_phase(tmp, run, slice_stats):
     trained torus; then the MU mesh's refinement on K3a against the plain
     version."""
     from diffudf_tpu_torch.cli import generate_mc
-    from diffudf_tpu_torch.ops import min_distance, value, vg, vgh
+    from diffudf_tpu_torch.ops import vg
 
     with open(ENHANCED_CONFIG) as fh:
         cfg = json.load(fh)
@@ -1568,8 +1618,7 @@ def enhanced_phase(tmp, run, slice_stats):
 
     generate_mc.refine_vertices = recording
     try:
-        vgh.launches = vgh.bwd_launches = vg.launches = vg.bwd_launches = value.launches = 0
-        min_distance.launches = 0
+        zero_counts()
         t0 = time.perf_counter()
         meshes, stats = generate_mc.main([cfg_path])
         wall_s = time.perf_counter() - t0
@@ -1628,6 +1677,354 @@ def enhanced_phase(tmp, run, slice_stats):
                                      "cap_faces")}}
 
 
+def sync(device):
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def float32_only():
+    """What device_phase sets, for a rank process that did not run it."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def flat_params(params):
+    return torch.cat([t.detach().reshape(-1) for layer in params
+                      for t in (layer["w"], layer["b"])])
+
+
+def step_errors(row, grads, want_row, want_grads):
+    """(largest relative term error, worst gradient element over phase 8's
+    GTOL form, largest absolute gradient error) of a step against another."""
+    row, want_row = row.detach(), want_row.detach()
+    term = float(((row - want_row).abs() / want_row.abs().clamp(min=1e-30)).max())
+    worst = err = 0.0
+    for g, w in zip(grads, want_grads):
+        limit = GTOL["K2"] * max(float(w.abs().max()), 1.0) + RTOL * w.abs()
+        worst = max(worst, float(((g - w).abs() / limit).max()))
+        err = max(err, float((g - w).abs().max()))
+    return term, worst, err
+
+
+def dp_train_rank(group, cfg_path, cut):
+    """Phase 17 on one of 2 ranks: step 1 against the single-rank step on
+    the union batch, the gradient all-reduce's time, then the cut recipe
+    through cli.train.setup_train; -> rank 0's record."""
+    from diffudf_tpu_torch.cli import train
+    from diffudf_tpu_torch.config import TrainConfig
+    from diffudf_tpu_torch.train.loop import Trainer, generator_for, rank_key
+
+    float32_only()
+    cfg = TrainConfig.from_json(cfg_path)
+    spec, rank0, n = cfg.network.to_spec(), group.rank == 0, group.size
+    sampler, _, _ = train.build_sampler(cfg, device=group.device, cache_writer=rank0)
+    trainer = Trainer(spec, sampler, cfg, group=group)
+    state = trainer.init_state()
+    pts, nrm, sdf, n_surface, share = trainer.draw(
+        generator_for(rank_key(state.key, group.rank), group.device))
+    sync(group.device)
+    zero_counts()
+    row, _, grads = trainer.batch_step("s1", state.params, pts, nrm, sdf, n_surface, share)
+    sync(group.device)
+    step_launches = read_counts()
+
+    # the union of the ranks' batches, surface rows first: each group of
+    # rows gathered from every rank in turn
+    sz = sampler.local(n).sizes
+    cuts = np.cumsum([0, sz.on_surface, sz.far, sz.near])
+
+    def union(t):
+        return torch.cat([group.gather_rows(t[a:b].contiguous(), n * int(b - a))
+                          for a, b in zip(cuts[:-1], cuts[1:])])
+
+    batch = [union(t) for t in (pts, nrm, sdf)]
+    flat = torch.cat([g.reshape(-1) for g in grads])
+    times = []
+    for _ in range(21):
+        sync(group.device)
+        t0 = time.perf_counter()
+        group.all_reduce_sum(flat)
+        sync(group.device)
+        times.append(1e3 * (time.perf_counter() - t0))
+    out = {"dp": trainer.dp, "rows": [len(pts), n_surface], "share": share,
+           "values": len(flat), "all_reduce_ms": float(np.median(times[1:]))}
+    if rank0:
+        want_row, _, want_grads = Trainer(spec, sampler, cfg).batch_step(
+            "s1", state.params, *batch, n * sz.on_surface)
+        out["step"] = step_errors(row, grads, want_row, want_grads)
+        out["terms"] = row.tolist()
+
+    zero_counts()
+    stats = {}
+    cut = dict(cut, checkpoint_path=cut["checkpoint_path"] if rank0 else cut["rank1_path"])
+    _, _, state = train.setup_train(TrainConfig.from_dict(cut), make_meshes=False,
+                                    verbose=False, device=group.device, stats=stats,
+                                    group=group)
+    sync(group.device)
+    run_launches = read_counts()
+    p, best = flat_params(state.params), flat_params(state.best_params)
+    out.update(
+        step_launches=group.per_rank(list(step_launches.values())).astype(int).tolist(),
+        run_launches=group.per_rank(list(run_launches.values())).astype(int).tolist(),
+        s1_ms=group.per_rank([1e3 * stats["s1_s"] / stats["s1_steps"]])[:, 0].tolist(),
+        s2_ms=group.per_rank([1e3 * stats["s2_s"] / stats["s2_steps"]])[:, 0].tolist(),
+        all_reduce_ms=group.per_rank([out["all_reduce_ms"]])[:, 0].tolist(),
+        params_equal=bool((group.per_rank(p.cpu().numpy()) == p.cpu().numpy()).all()),
+        best_equal=bool((group.per_rank(best.cpu().numpy()) == best.cpu().numpy()).all()),
+        finite=group.all_true(bool(torch.isfinite(p).all() and torch.isfinite(best).all())),
+        stats=stats)
+    return out
+
+
+def dp_fallback_rank(group, cfg_path):
+    """Phase 17's fallback step on one of 4 ranks: the warning, this rank's
+    block of one batch, and (rank 0) the step against the single-device
+    step on that batch."""
+    import warnings
+
+    from diffudf_tpu_torch.cli import train
+    from diffudf_tpu_torch.config import TrainConfig
+    from diffudf_tpu_torch.train.loop import Trainer, generator_for
+
+    float32_only()
+    cfg = TrainConfig.from_json(cfg_path)
+    spec = cfg.network.to_spec()
+    sampler, _, _ = train.build_sampler(cfg, device=group.device,
+                                        cache_writer=group.rank == 0)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        trainer = Trainer(spec, sampler, cfg, group=group)
+    warned = any(issubclass(w.category, RuntimeWarning) and "falling back to the "
+                 "constrained-sharding DP step" in str(w.message) for w in caught)
+    state = trainer.init_state()
+    pts, nrm, sdf, n_surface, share = trainer.draw(generator_for(state.key, group.device))
+    zero_counts()
+    row, _, grads = trainer.batch_step("s1", state.params, pts, nrm, sdf, n_surface, share)
+    sync(group.device)
+    launches = read_counts()
+    out = {"dp": trainer.dp, "warned": group.all_true(warned),
+           "rows": group.per_rank([len(pts), n_surface]).astype(int).tolist(),
+           "launches": group.per_rank(list(launches.values())).astype(int).tolist()}
+    if group.rank == 0:
+        full = sampler.sample(generator_for(state.key, group.device))
+        want_row, _, want_grads = Trainer(spec, sampler, cfg).batch_step(
+            "s1", state.params, *full, sampler.sizes.on_surface)
+        out["step"] = step_errors(row, grads, want_row, want_grads)
+    return out
+
+
+def check_step(tag, errors):
+    term, worst, err = errors
+    print(f"{tag} step 1 against the single-device step: terms max relative error "
+          f"{term:.3e} (bound {DP_TERM_RTOL}), gradient worst err/limit {worst:.3f} "
+          f"(GTOL {GTOL['K2']} * max(max |g|, 1) + {RTOL} |g|), max |delta g| {err:.3e}")
+    if not (term <= DP_TERM_RTOL and worst <= 1):
+        raise AssertionError(f"{tag} the data-parallel step differs from the single-device "
+                             f"step: terms {term}, gradients {worst} of the limit")
+
+
+@phase("dp train")
+def dp_train_phase(tmp, run):
+    """Data-parallel training on the card: 2 ranks on cuda:0 (the fast
+    step, the cut recipe), 4 ranks (the fallback step), a one-rank NCCL
+    group."""
+    from diffudf_tpu_torch.parallel import mesh
+
+    names = list(read_counts())
+    cut = dict(RECIPE, **DP_EPOCHS, dataset=os.path.join(run["data_dir"], "torus"),
+               experiment_name="torus_dp", checkpoint_path=os.path.join(tmp, "runs"),
+               rank1_path=os.path.join(tmp, "runs_rank1"))
+    t0 = time.perf_counter()
+    dp = mesh.run_group(dp_train_rank, 2, (run["cfg_path"], cut), devices=["cuda:0"] * 2)
+    launch_s = time.perf_counter() - t0
+    st = dp["stats"]
+    print(f"[dp] 2 ranks on cuda:0 over gloo ({launch_s:.2f} s with the start): step "
+          f"{dp['dp']}, each rank {dp['rows'][0]} rows ({dp['rows'][1]} on the surface), share "
+          f"{dp['share']}; step 1 launches by rank {dict(zip(names, zip(*dp['step_launches'])))}"
+          f"; the cut recipe ({DP_EPOCHS}): launches by rank "
+          f"{dict(zip(names, zip(*dp['run_launches'])))}, s1 ms a step by rank "
+          f"{[round(x, 3) for x in dp['s1_ms']]}, s2 {[round(x, 3) for x in dp['s2_ms']]}; "
+          f"gradient all-reduce of {dp['values']} float32 values (gloo, CUDA tensors through "
+          f"the host): {[round(x, 3) for x in dp['all_reduce_ms']]} ms by rank (median of 20); "
+          f"bootstrap epochs {st['bootstrap_epochs']}, swap at {st['swap_epoch']}", flush=True)
+    check_step("[dp]", dp["step"])
+    want_step = {"K1": 1, "K2": 1, "K3a": 1, "K3b": 1, "K4": 0}
+    n_s1, boot = st["s1_steps"], st["bootstrap_epochs"] * RECIPE["batches_per_epoch"]
+    for r in range(2):
+        got = dict(zip(names, dp["step_launches"][r]))
+        if {k: got[k] for k in want_step} != want_step:
+            raise AssertionError(f"[dp] rank {r}'s step launched {got}: K1, K2, K3a, K3b once")
+        got = dict(zip(names, dp["run_launches"][r]))
+        want = {"K1": n_s1 + (r == 0), "K2": n_s1, "K3a": n_s1, "K3b": n_s1, "K4": 0,
+                "K5": boot + (r == 0)}
+        if got != want:
+            raise AssertionError(f"[dp] rank {r} launched {got} in the cut recipe, not {want}: "
+                                 f"once per s1 step, K1 and K5 once more for rank 0's figure, "
+                                 f"K5 once per bootstrap step")
+    if not (dp["params_equal"] and dp["best_equal"] and dp["finite"]):
+        raise AssertionError(f"[dp] params equal {dp['params_equal']}, best params equal "
+                             f"{dp['best_equal']}, finite {dp['finite']}")
+    logs = losses_table(os.path.join(tmp, "runs", "torus_dp", "losses.csv"))
+    if len(logs["total"]) != DP_EPOCHS["num_epochs"] or not np.isfinite(logs["total"]).all():
+        raise AssertionError("[dp] losses.csv lacks epochs or holds a non-finite total")
+    if os.path.exists(cut["rank1_path"]):
+        raise AssertionError("[dp] rank 1 wrote files")
+    check_figure(os.path.join(tmp, "runs", "torus_dp", "reconstructions"), FIGURE_WIDTH, "[dp]")
+
+    t0 = time.perf_counter()
+    fb = mesh.run_group(dp_fallback_rank, 4, (run["cfg_path"],), devices=["cuda:0"] * 4)
+    print(f"[dp] 4 ranks on cuda:0 ({time.perf_counter() - t0:.2f} s with the start): step "
+          f"{fb['dp']}, the RuntimeWarning on every rank {fb['warned']}; rows, surface rows by "
+          f"rank {fb['rows']}; launches by rank {dict(zip(names, zip(*fb['launches'])))}")
+    check_step("[dp] fallback:", fb["step"])
+    if fb["dp"] != "constrained" or not fb["warned"]:
+        raise AssertionError("[dp] 4 ranks did not take the warned fallback step")
+
+    store = os.path.join(tmp, "nccl_store")
+    g = mesh.init_group(0, 1, "cuda:0", "nccl", store_path=store)
+    try:
+        t = torch.arange(4.0, device="cuda")
+        same = bool((g.all_reduce_sum(t) == t).all())
+    finally:
+        mesh.close_group()
+    print(f"[dp] a one-rank NCCL group: backend {g.backend}, all-reduce of 4 values returns "
+          f"them {same}")
+    if not (g.backend == "nccl" and same):
+        raise AssertionError("[dp] the one-rank NCCL group failed")
+    return {"launches": dp["run_launches"], "step_launches": dp["step_launches"],
+            "step": dp["step"], "s1_ms": dp["s1_ms"], "s2_ms": dp["s2_ms"],
+            "all_reduce_ms": dp["all_reduce_ms"], "fallback": fb}
+
+
+SHARDED_PATHS = ("generate_mc_sharded", "generate_st_sharded", "generate_pc_sharded")
+
+
+def serving_rank(group, a):
+    """Phase 18 on one of 2 ranks: the three sharded serving paths through
+    their CLI functions, this rank's launches by path; -> rank 0's record."""
+    from diffudf_tpu_torch.cli import generate_mc, generate_pc, generate_st
+
+    float32_only()
+    fields, extract = [], generate_mc.extract_fields_sparse
+
+    def recording(*args, **kw):
+        fields.append(extract(*args, **kw))
+        return fields[-1]
+
+    out, launches = {}, {}
+    fns = dict(zip(SHARDED_PATHS, (generate_mc.generate_mc, generate_st.generate_st,
+                                   generate_pc.generate_pc)))
+    generate_mc.extract_fields_sparse = recording
+    try:
+        for path, fn, cfg in ((p, fns[p], a[p]) for p in SHARDED_PATHS):
+            zero_counts()
+            stats = {}
+            t0 = time.perf_counter()
+            result = fn(cfg, group.device, stats, group=group)
+            sync(group.device)
+            secs = time.perf_counter() - t0
+            launches[path] = group.per_rank(list(read_counts().values())).astype(int).tolist()
+            out[path] = {"result": result, "stats": stats,
+                         "seconds": group.per_rank([secs])[:, 0].tolist()}
+    finally:
+        generate_mc.extract_fields_sparse = extract
+    out["fields"], out["launches"] = fields[0], launches
+    return out
+
+
+@phase("sharded serving")
+def sharded_serving_phase(tmp, sphere_path, run, render, pc):
+    """generate_mc (shard_grid), generate_st (shard_rays) and generate_pc
+    (shard_points) on 2 ranks of cuda:0, against phases 5, 9 and 15."""
+    from diffudf_tpu_torch.fields.siren import SirenSpec
+    from diffudf_tpu_torch.grid.lattice import extract_fields_sparse
+    from diffudf_tpu_torch.parallel import mesh
+    from diffudf_tpu_torch.train.checkpoint import load_params
+
+    names = list(read_counts())
+    with open(PC_CONFIG) as fh:
+        pc_cfg = json.load(fh)
+    pc_cfg.update(alpha=RECIPE["alpha"], shard_points=True,
+                  output_path=os.path.join(tmp, "torus_generated_sharded.ply"),
+                  model_path=os.path.join(tmp, "runs", "torus", "models", "model_best.npz"))
+    st_cfg = render_config(tmp, render["model_path"], shard_rays=True)
+    mc_cfg = {"alpha": ALPHA, "gt_mode": "tanh", "hidden_layer_nodes": list(HIDDEN), "w0": 30,
+              "model_path": sphere_path, "output_path": os.path.join(tmp, "sphere_sharded.ply"),
+              "algorithm": "both", "nsamples": N_GRID, "shard_grid": True}
+    t0 = time.perf_counter()
+    out = mesh.run_group(serving_rank, 2, (dict(zip(SHARDED_PATHS, (mc_cfg, st_cfg, pc_cfg))),),
+                         devices=["cuda:0"] * 2)
+    seconds = {p: out[p]["seconds"] for p in SHARDED_PATHS}
+    print(f"[serving] 2 ranks on cuda:0: {time.perf_counter() - t0:.2f} s with the start; "
+          f"seconds by path and rank {json.dumps(seconds)}")
+    launches = {path: {k: list(v) for k, v in zip(names, zip(*by_rank))}
+                for path, by_rank in out["launches"].items()}
+    print(f"[serving] launches by path and rank: {json.dumps(launches)}", flush=True)
+
+    # generate_mc: the gathered fields against phase 5's grid pass
+    spec = SirenSpec(hidden=HIDDEN)
+    udf, dirs = out["fields"]
+    udf1, dirs1 = extract_fields_sparse(load_params(sphere_path, device="cuda"), spec, N_GRID,
+                                        "tanh", ALPHA)
+    bg = udf1[0, 0, 0]  # the background: the corner's block is far from the sphere
+    band, band1 = udf != bg, udf1 != bg
+    has, has1 = np.abs(dirs).sum(-1) > 0, np.abs(dirs1).sum(-1) > 0
+    both_u, both_d = band & band1, has & has1
+    udf_worst = float((np.abs(udf - udf1) / (TOL["f"] + RTOL * np.abs(udf1)))[both_u].max())
+    dirs_worst = float((np.abs(dirs - dirs1).max(-1) / (TOL["g"] + RTOL))[both_d].max())
+    moved = {"band": int((band != band1).sum()), "dirs": int((has != has1).sum())}
+    print(f"[serving] generate_mc N={N_GRID}: udf on {int(both_u.sum())} band points worst "
+          f"|delta| / ({TOL['f']} + {RTOL} |udf|) {udf_worst:.3f}, max |delta| "
+          f"{float(np.abs(udf - udf1)[both_u].max()):.3e}; dirs on {int(both_d.sum())} points "
+          f"worst |delta| / {TOL['g'] + RTOL} {dirs_worst:.3f}; points in one band only {moved}")
+    if not (udf_worst <= 1 and dirs_worst <= 1
+            and max(moved.values()) <= 1e-4 * int(both_d.sum())):
+        raise AssertionError(f"[serving] the sharded grid pass differs from phase 5's: udf "
+                             f"{udf_worst}, dirs {dirs_worst} of the limit, {moved}")
+    mc_chamfer = sphere_chamfer(out["generate_mc_sharded"]["result"], "[serving]")
+    for r in range(2):
+        if launches["generate_mc_sharded"]["K1"][r] != 1:
+            raise AssertionError(f"[serving] rank {r} launched K1 "
+                                 f"{launches['generate_mc_sharded']['K1'][r]} times in the grid")
+
+    # generate_st: hit pixels against phase 9's render
+    img = out["generate_st_sharded"]["result"]
+    passes = out["generate_st_sharded"]["stats"]["passes"]
+    hs, h9 = hit_pixels(img), hit_pixels(render["img"])
+    flips = int((hs != h9).sum())
+    rc = st_cfg["rendering_config"]
+    print(f"[serving] generate_st {rc['width']}x{rc['height']}, {len(passes)} passes: {flips} hit "
+          f"pixels differ from "
+          f"phase 9's of {int(h9.sum())} (bound {MAX_HIT_FLIPS:.0%}); iterations by pass "
+          f"{[p['iterations'] for p in passes]} (phase 9: "
+          f"{[p['iterations'] for p in render['passes']]})")
+    if flips > MAX_HIT_FLIPS * h9.sum() or not h9.sum():
+        raise AssertionError(f"[serving] {flips} of {int(h9.sum())} hit pixels differ")
+    k4, k1 = launches["generate_st_sharded"]["K4"], launches["generate_st_sharded"]["K1"]
+    if min(k4) < len(passes) or k1 != [len(passes), 0]:
+        raise AssertionError(f"[serving] generate_st launches K4 {k4}, K1 {k1}: K4 on every "
+                             f"rank every pass, K1 once a pass on rank 0")
+
+    # generate_pc: phase 15's gates, and the cloud against phase 15's
+    cloud = out["generate_pc_sharded"]["result"]
+    pts, nrm = np.asarray(cloud.points), np.asarray(cloud.normals)
+    rounds = out["generate_pc_sharded"]["stats"]["rounds"]
+    field_err, normal_cos, oriented, chamfer = cloud_against_mesh(pts, nrm, run, "[serving]")
+    delta = (float(np.abs(pts - pc["cloud"]).max()) if pts.shape == pc["cloud"].shape
+             else f"shapes {pts.shape} and {pc['cloud'].shape}")
+    print(f"[serving] generate_pc: {len(pts)} points in {rounds} rounds; max |delta| against "
+          f"phase 15's cloud {delta} (bound PROJ_TOL {PROJ_TOL})")
+    if isinstance(delta, str) or not delta <= PROJ_TOL:
+        raise AssertionError(f"[serving] the sharded cloud differs from phase 15's: {delta}")
+    want = {"K1": [rounds] * 2, "K3a": [(pc_cfg["ref_steps"] - 1) * rounds] * 2}
+    got = {k: launches["generate_pc_sharded"][k] for k in want}
+    if got != want:
+        raise AssertionError(f"[serving] generate_pc launches {got} != {want} on each rank")
+    return {"launches": launches, "mc_chamfer": mc_chamfer, "udf_worst": udf_worst,
+            "dirs_worst": dirs_worst, "hit_flips": flips, "pc_field_error": field_err,
+            "pc_normal_cos": normal_cos, "pc_delta": delta, "seconds": seconds}
+
+
 KERNELS = {
     "K1": ("vgh", "diffudf_tpu_torch/csrc/vgh.cu", "diffudf_tpu/ops/pallas_vgh.py:55 (_vgh_kernel)"),
     "K2": ("vgh_bwd", "diffudf_tpu_torch/csrc/vgh_bwd.cu",
@@ -1642,6 +2039,15 @@ KERNELS = {
 }
 
 
+def dp_by_path(dp, key):
+    """Phase 17's launches of one kernel, by rank: the cut recipe on 2 ranks
+    (``train_dp``) and the fallback step on 4 (``train_dp_fallback_step``)."""
+    names = list(read_counts())
+    i = names.index(key)
+    return {"train_dp": [r[i] for r in dp["launches"]],
+            "train_dp_fallback_step": [r[i] for r in dp["fallback"]["launches"]]}
+
+
 def main():
     t_start = time.perf_counter()
     device_phase()
@@ -1649,7 +2055,7 @@ def main():
     kernel_phase()
     with tempfile.TemporaryDirectory() as tmp:
         model_path = fixture_phase(tmp)
-        stats, k1_mc_launches = slice_phase(tmp, model_path)
+        stats, k1_mc_launches, _ = slice_phase(tmp, model_path)
         t = timing_phase(model_path, stats["dirs_points"])
         run = train_phase(tmp)
         tk = train_kernel_phase(run["params"], run["cfg_path"])
@@ -1661,6 +2067,9 @@ def main():
         gt = gt_render_phase(tmp, mesh_run["data_dir"])
         pc = point_cloud_phase(tmp, run)
         enh = enhanced_phase(tmp, run, stats)
+        dp = dp_train_phase(tmp, run)
+        serving = sharded_serving_phase(tmp, model_path, run, render, pc)
+    sharded = serving["launches"]
     rows = []
     for key, (name, source, replaces) in KERNELS.items():
         row = {"name": name, "route": "cuda", "source": source, "replaces": replaces}
@@ -1675,7 +2084,9 @@ def main():
                                          "generate_df": figs["torus_pc.ply"]["launches"]["K1"],
                                          "train_mesh": mesh_run["launches"]["K1"],
                                          "generate_pc": pc["launches"]["K1"],
-                                         "generate_mc_enhanced": enh["launches"]["K1"]},
+                                         "generate_mc_enhanced": enh["launches"]["K1"],
+                                         **dp_by_path(dp, "K1"),
+                                         **{p: v["K1"] for p, v in sharded.items()}},
                        max_abs_err=max(t["max_err"].values()), max_err=t["max_err"],
                        **{k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                             "tensor_bound_ms", "fp32_bound_ms", "bytes_moved",
@@ -1686,6 +2097,9 @@ def main():
             # the render's march runs the bf16 mode (fast_march); the f32
             # mode's numbers come beside them
             row.update(launches=render["launches"]["K4"], mode="bf16",
+                       launches_by_path={"generate_st": render["launches"]["K4"],
+                                         "generate_st_sharded":
+                                             sharded["generate_st_sharded"]["K4"]},
                        **{k: rk["bf16"][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                                      "bound_by", "points", "buckets")},
                        f32=rk["f32"], march_share=rk["march_share"])
@@ -1695,7 +2109,8 @@ def main():
             row.update(launches=run["launches"]["K5"],
                        launches_by_path={"train": run["launches"]["K5"],
                                          "generate_df": figs["torus_pc.ply"]["launches"]["K5"],
-                                         "train_mesh": mesh_run["launches"]["K5"]},
+                                         "train_mesh": mesh_run["launches"]["K5"],
+                                         **dp_by_path(dp, "K5")},
                        **{k: dk[k] for k in ("max_abs_err", "witness_max_err",
                                              "expanded_form_max_err", "ms", "plain_ms",
                                              "bound_ms", "bound_by", "issue_floor_ms", "queries",
@@ -1706,18 +2121,25 @@ def main():
             # the FP32 FMA bound and the design's bytes
             row["launches"] = run["launches"][key]
             row["launches_by_path"] = {"train": run["launches"][key],
-                                       "train_mesh": mesh_run["launches"][key]}
+                                       "train_mesh": mesh_run["launches"][key],
+                                       **dp_by_path(dp, key)}
             row.update(tk[key])
             if key == "K3a":
-                row["launches_by_path"].update(generate_pc=pc["launches"]["K3a"],
-                                               generate_mc_enhanced=enh["launches"]["K3a"])
+                row["launches_by_path"].update(
+                    generate_pc=pc["launches"]["K3a"],
+                    generate_mc_enhanced=enh["launches"]["K3a"],
+                    generate_pc_sharded=sharded["generate_pc_sharded"]["K3a"])
                 row["pc_shape"] = pc["times"]["K3a"]
         row["library_ms"] = None
         rows.append(row)
-    print(f"[total] {time.perf_counter() - t_start:.2f} s; the mesh-mode training and the GT "
+    print(f"[total] {time.perf_counter() - t_start:.2f} s; data-parallel training and the "
+          f"sharded serving paths: {json.dumps({k: v for k, v in dp.items() if k != 'fallback'})}"
+          f", {json.dumps({k: v for k, v in serving.items() if k != 'launches'})}")
+    print(f"[total] the mesh-mode training and the GT "
           f"render: {json.dumps({k: v for k, v in mesh_run.items() if k != 'data_dir'})}, "
           f"{json.dumps(gt)}; the point cloud and the enhanced extraction: "
-          f"{json.dumps({k: v for k, v in pc.items() if k != 'times'})}, {json.dumps(enh)}")
+          f"{json.dumps({k: v for k, v in pc.items() if k not in ('times', 'cloud')})}, "
+          f"{json.dumps(enh)}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

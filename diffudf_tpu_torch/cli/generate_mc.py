@@ -13,6 +13,10 @@ quality ∈ {parity, default, enhanced}, refine_vertices (zero-set
 reprojection steps of each mesh's vertices, ``extract/refine.py``: one K3a
 launch a step), taubin_iters.  ``enhanced`` extracts at N ≥ 385 and
 refines each mesh with 2 steps, then 10 Taubin iterations.
+``shard_grid: true`` splits the lattice's field evaluations over every
+visible GPU, one rank each (:mod:`..parallel.mesh`; one GPU is a group of
+one), as the JAX key shards them over every device; rank 0 meshes, refines
+and writes.
 """
 
 from __future__ import annotations
@@ -33,6 +37,7 @@ from ..extract.sdf_mc import extract_mesh_signed
 from ..extract.triangulate import DEFAULT_TRIANGULATOR
 from ..fields.siren import SirenSpec
 from ..grid.lattice import extract_fields_sparse, extract_sdf_grid
+from ..parallel.mesh import spread
 from ..train import checkpoint as ckpt
 
 
@@ -86,12 +91,14 @@ def run_mc(params, spec, gt_mode, N, output_path, alpha=None, algorithm="meshudf
            triangulator=None, sparse=True, refine_steps=0,
            taubin_iters=0, use_pallas=None, cap_signing="vote",
            cap_face_prune_voxels=1.0, cap_taubin=3,
-           mu_face_prune_voxels=1.0, mu_taubin=3, quality=None, stats=None):
+           mu_face_prune_voxels=1.0, mu_taubin=3, quality=None, stats=None, group=None):
     """Extract and save mesh(es) from params on their device; returns Mesh
     or (meshMU, meshCAP).
 
-    The knobs are those of the JAX package's ``run_mc`` (see its docstring),
-    without ``mesh``: one device.  ``refine_steps`` projects each mesh's
+    The knobs are those of the JAX package's ``run_mc`` (see its docstring);
+    ``group`` (its ``mesh``) splits the grid's field evaluations over the
+    ranks, and rank 0 alone meshes and saves (the others return None).
+    ``refine_steps`` projects each mesh's
     vertices onto the zero set (``extract.refine.refine_vertices`` at the
     resolved N; not for the ``siren`` algorithm), then ``taubin_iters``
     smooths them, in the JAX package's order.
@@ -153,8 +160,11 @@ def run_mc(params, spec, gt_mode, N, output_path, alpha=None, algorithm="meshudf
         stats["cap_faces"] = len(faces)
         return m
 
+    main_rank = group is None or group.rank == 0
     if algorithm == "siren":
-        sdf = extract_sdf_grid(params, spec, N).cpu().numpy()
+        sdf = extract_sdf_grid(params, spec, N, group=group).cpu().numpy()
+        if not main_rank:
+            return None
         verts, faces = extract_mesh_signed(sdf, triangulator=triangulator)
         m = Mesh(verts, faces)
         save_mesh(output_path, m)
@@ -163,8 +173,10 @@ def run_mc(params, spec, gt_mode, N, output_path, alpha=None, algorithm="meshudf
 
     udf, dirs = extract_fields_sparse(
         params, spec, N, gt_mode, alpha,
-        coarse_stride=None if sparse else 1, use_pallas=use_pallas, stats=stats,
+        coarse_stride=None if sparse else 1, use_pallas=use_pallas, stats=stats, group=group,
     )
+    if not main_rank:
+        return None
 
     if algorithm in ("cap", "meshudf"):
         m = _cap() if algorithm == "cap" else _mu()
@@ -252,28 +264,24 @@ def _cap_postprocessed(udf, dirs, N, triangulator=None, cap_signing="vote",
     return verts, faces
 
 
-def main(argv=None):
-    """Run the CLI; -> (what :func:`run_mc` returns, its ``stats`` dict)."""
-    parser = argparse.ArgumentParser(description="Generate mesh from trained model")
-    parser.add_argument("config_path", type=str)
-    parser.add_argument("--device", default="cuda",
-                        help="torch device for the field passes (default cuda)")
-    args = parser.parse_args(argv)
-    with open(args.config_path) as fh:
-        cfg = json.load(fh)
-
-    # float32 means float32: no TF32 rounding of matmul or convolution inputs
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    params = ckpt.load_params(cfg["model_path"], device=args.device)
+def generate_mc(cfg: dict, device="cuda", stats: dict | None = None, group=None):
+    """The mesh(es) of ``cfg``'s model (:func:`run_mc` with the config's
+    knobs).  ``shard_grid`` without a ``group`` runs a group
+    (:func:`..parallel.mesh.spread`: every visible GPU for ``device="cuda"``,
+    the one GPU an index names); -> rank 0's result."""
+    if stats is None:
+        stats = {}
+    if group is None and cfg.get("shard_grid"):
+        return spread(generate_mc, device, cfg=cfg, stats=stats)
+    params = ckpt.load_params(cfg["model_path"], device=device)
     spec = SirenSpec(
         hidden=tuple(cfg["hidden_layer_nodes"]),
         w0=cfg.get("w0", 30),
         activation=cfg.get("activation", "sine"),
     )
-    print("Generating mesh...")
-    stats = {}
-    result = run_mc(
+    if group is None or group.rank == 0:
+        print("Generating mesh...")
+    return run_mc(
         params, spec, cfg["gt_mode"], cfg["nsamples"], cfg["output_path"],
         cfg.get("alpha"), cfg.get("algorithm", "meshudf"),
         triangulator=cfg.get("triangulator"),
@@ -288,7 +296,25 @@ def main(argv=None):
         mu_taubin=cfg.get("mu_taubin", 3),
         quality=cfg.get("quality"),
         stats=stats,
+        group=group,
     )
+
+
+def main(argv=None):
+    """Run the CLI; -> (what :func:`run_mc` returns, its ``stats`` dict)."""
+    parser = argparse.ArgumentParser(description="Generate mesh from trained model")
+    parser.add_argument("config_path", type=str)
+    parser.add_argument("--device", default="cuda",
+                        help="torch device for the field passes (default cuda)")
+    args = parser.parse_args(argv)
+    with open(args.config_path) as fh:
+        cfg = json.load(fh)
+
+    # float32 means float32: no TF32 rounding of matmul or convolution inputs
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    stats = {}
+    result = generate_mc(cfg, args.device, stats)
     print("Stats: " + json.dumps(stats))
     return result, stats
 

@@ -6,10 +6,12 @@ The torch counterpart of ``diffudf_tpu/cli/generate_pc.py``:
 
 Config keys (``configs/pc_cfg.json``): model_path (.npz + .spec.json, the
 JAX package's checkpoint format), hidden_layer_nodes, w0, activation,
-gt_mode, alpha, nsamples, ref_steps, surf_thresh, max_iter, output_path.
-Not ported: ``shard_points`` (several devices).  Prints a ``Stats:`` line:
-the sampler's rounds, candidates and kept rows a round, projection seconds
-and K3a / K1 launches, and the orientation's host seconds.
+gt_mode, alpha, nsamples, ref_steps, surf_thresh, max_iter, output_path,
+shard_points (true: every visible GPU projects its block of each round's
+candidates, one rank each, :mod:`..parallel.mesh`; one GPU is a group of
+one; rank 0 orients and writes).  Prints a ``Stats:`` line: the sampler's
+rounds, candidates and kept rows a round, projection seconds and K3a / K1
+launches, and the orientation's host seconds.
 """
 
 from __future__ import annotations
@@ -22,19 +24,23 @@ import torch
 
 from ..data.mesh_io import PointCloudData, save_point_cloud
 from ..fields.siren import SirenSpec
+from ..parallel.mesh import spread
 from ..pc.sampler import generate_point_cloud, orient_normals_consistent
 from ..train import checkpoint as ckpt
 
 
-def generate_pc(config: dict, device="cuda", stats: dict | None = None) -> PointCloudData:
+def generate_pc(config: dict, device="cuda", stats: dict | None = None,
+                group=None) -> PointCloudData:
     """The oriented point cloud of ``config``'s model; ``stats`` as
-    :func:`..pc.sampler.generate_point_cloud` fills it, plus ``orient_s``."""
-    if config.get("shard_points"):
-        raise NotImplementedError(
-            "shard_points (several devices) is not ported yet: ROADMAP.md, "
-            "'Modules to port', item 5 'Multi-GPU and utils'")
+    :func:`..pc.sampler.generate_point_cloud` fills it, plus ``orient_s``.
+    ``shard_points`` without a ``group`` runs a group
+    (:func:`..parallel.mesh.spread`: every visible GPU for ``device="cuda"``,
+    the one GPU an index names); with a group, rank 0 returns the
+    cloud (the others None)."""
     if stats is None:
         stats = {}
+    if group is None and config.get("shard_points"):
+        return spread(generate_pc, device, config=config, stats=stats)
     params = ckpt.load_params(config["model_path"], device=device)
     spec = SirenSpec(
         hidden=tuple(config["hidden_layer_nodes"]),
@@ -50,7 +56,10 @@ def generate_pc(config: dict, device="cuda", stats: dict | None = None) -> Point
         surf_thresh=config.get("surf_thresh", 0.01),
         max_iter=config.get("max_iter", 1000),
         stats=stats,
+        group=group,
     )
+    if group is not None and group.rank != 0:
+        return None
     t0 = time.perf_counter()
     normals = orient_normals_consistent(points, normals, k=10)
     stats["orient_s"] = time.perf_counter() - t0

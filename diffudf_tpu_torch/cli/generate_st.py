@@ -25,8 +25,13 @@ package does.
 The render imports neither PIL nor matplotlib: the curvature colormap is
 the package's own copy of RdYlBu and ``main`` writes the PNG with the
 standard library (``render/png.py``); PIL is imported only to rotate the
-image when ``rotation`` is non-zero.  Not ported: ``shard_rays`` (several
-devices), which raises NotImplementedError.
+image when ``rotation`` is non-zero.
+
+``shard_rays: true`` marches over every visible GPU, one rank each
+(:mod:`..parallel.mesh`; one GPU is a group of one), as the JAX key shards
+the march over every device: each rank marches its block of each pass's
+rays (``render.tracer.trace_rays_compacted(group=)``) and rank 0 computes
+the hit geometry, shades and writes.
 """
 
 from __future__ import annotations
@@ -42,6 +47,7 @@ from ..data.mesh_distance import point_triangle_distance, triangles_from_mesh
 from ..data.mesh_io import load_mesh
 from ..fields.siren import SirenSpec
 from ..ops import value as k4
+from ..parallel.mesh import spread
 from ..render.camera import camera_rays_device, cube_entry_points, world_rays
 from ..render.png import write_png
 from ..render.shading import phong_shading, rdylbu, ward_reflectance
@@ -64,9 +70,10 @@ def _pad(arr, mult):
 
 
 def create_projectional_image(params, spec: SirenSpec, rays, t0, mask, network_config,
-                              rendering_config, stats=None):
+                              rendering_config, stats=None, group=None):
     """One render pass -> (H·W, 3) colours: the march and the hit geometry on
-    the params' device, shading on the host.
+    the params' device, shading on the host.  With a ``group`` each rank
+    marches its block of the rays; ranks other than 0 then return None.
 
     rays, t0 (N, 3) and mask (N,) are tensors (the device camera) or host
     arrays.  With a ``stats`` dict, the pass records there its march
@@ -94,8 +101,13 @@ def create_projectional_image(params, spec: SirenSpec, rays, t0, mask, network_c
         surface_threshold=rendering_config["surface_threshold"],
         max_iterations=rendering_config.get("max_iterations", 100),
         relaxation=rendering_config.get("relaxation", 1.0),
-        fast=fast, return_device=True, use_pallas=use_pallas,
+        fast=fast, return_device=True, use_pallas=use_pallas, group=group,
     )
+    if group is not None and group.rank != 0:
+        if stats is not None:
+            stats.update(iterations=int(iters), k4_launches=k4.launches - k4_launches,
+                         k4_points=k4.points - k4_points)
+        return None
     gd_steps = rendering_config.get("gd_steps", 0)
     if gd_steps:
         positions = gradient_descent_refine(params, spec, positions, hits, gt_mode=gt_mode,
@@ -238,18 +250,22 @@ def create_projectional_image_gt(mesh_path, rays, t0, mask, light_position, spec
     return colors
 
 
-def generate_st(config: dict, device="cuda", stats=None):
+def generate_st(config: dict, device="cuda", stats=None, group=None):
     """Multi-pass anti-aliased render -> (H, W, 3) uint8 image.
 
     With a ``stats`` dict, ``stats["passes"]`` lists each pass's record
-    (see :func:`create_projectional_image`)."""
+    (see :func:`create_projectional_image`).  ``shard_rays`` without a
+    ``group`` runs a group (:func:`..parallel.mesh.spread`: every visible
+    GPU for ``device="cuda"``, the one GPU an index names); with a group
+    each pass's march is split over the ranks and rank 0 returns the image
+    (the others None)."""
     network_config = config["network_config"]
     rendering = config["rendering_config"]
-    if rendering.get("shard_rays"):
-        raise NotImplementedError("shard_rays (several devices) is not ported")
+    gt = network_config.get("gt_mode") == "gt"
+    if group is None and rendering.get("shard_rays") and not gt:
+        return spread(generate_st, device, config=config, stats=stats)
     W, H = rendering["width"], rendering["height"]
     n_passes = rendering.get("sample_rate", 1)
-    gt = network_config.get("gt_mode") == "gt"
 
     rng = np.random.default_rng(config.get("seed", 0))
     colors = np.zeros((H * W, 3))
@@ -282,10 +298,15 @@ def generate_st(config: dict, device="cuda", stats=None):
                 max_iterations=config.get("max_iter", 30),
                 surface_eps=config.get("surface_eps", 1e-3), device=device, stats=passes[-1])
         else:
-            colors += create_projectional_image(params, spec, rays, t0, valid, network_config,
-                                                rendering, stats=passes[-1])
+            pass_colors = create_projectional_image(params, spec, rays, t0, valid,
+                                                    network_config, rendering,
+                                                    stats=passes[-1], group=group)
+            if pass_colors is not None:
+                colors += pass_colors
     if stats is not None:
         stats["passes"] = passes
+    if group is not None and group.rank != 0:
+        return None
 
     img = (colors / n_passes * 255).astype(np.uint8).reshape(H, W, 3)
     if rendering.get("rotation", 0):

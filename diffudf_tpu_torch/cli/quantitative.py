@@ -11,8 +11,8 @@ point cloud, and append to ``results.csv`` with the reference's columns.
         [--config cfg.json] [--no-provenance] [--device cpu]
 
 A directory with a ``_t.obj`` trains in mesh mode (the triangle oracle),
-one without in point-cloud mode, as in the JAX package.  One device:
-``--mesh N`` with N > 1 (data parallelism) raises NotImplementedError.
+one without in point-cloud mode, as in the JAX package.  ``--mesh N``
+trains each shape data-parallel on N ranks (``cli.train --mesh``).
 """
 
 from __future__ import annotations
@@ -64,12 +64,15 @@ def mesh_metrics(mesh: Mesh, gt_points, gt_normals):
     return l1, l2, nc
 
 
-def evaluate_shape(cfg: TrainConfig, gt_pc_path: str, device="cuda", stats=None):
-    """Train one shape and score its two meshes; -> (training seconds,
-    (L1, L2, NC) of the CAP mesh, (L1, L2, NC) of the MeshUDF mesh)."""
+def evaluate_shape(cfg: TrainConfig, gt_pc_path: str, device="cuda", stats=None,
+                   n_mesh_devices: int = 0):
+    """Train one shape (on ``n_mesh_devices`` ranks, :func:`.train.setup_train`)
+    and score its two meshes; -> (training seconds, (L1, L2, NC) of the CAP
+    mesh, (L1, L2, NC) of the MeshUDF mesh)."""
     from .train import setup_train
 
-    training_time, meshes, _ = setup_train(cfg, verbose=False, device=device, stats=stats)
+    training_time, meshes, _ = setup_train(cfg, verbose=False, device=device, stats=stats,
+                                           n_mesh_devices=n_mesh_devices)
     mesh_mu, mesh_cap = meshes
     gt = load_point_cloud(gt_pc_path)
     l1_cap, l2_cap, nc_cap = mesh_metrics(mesh_cap, gt.points, gt.normals)
@@ -107,17 +110,14 @@ def main(argv=None):
     parser.add_argument("--config", type=str, default=None,
                         help="JSON training config overriding the defaults")
     parser.add_argument("--mesh", type=int, default=0, metavar="N",
-                        help="devices to train on; only one is ported (N > 1 raises)")
+                        help="data-parallel training on N ranks; N=1 pins one device; "
+                             "default every visible GPU (see cli.train --mesh)")
     parser.add_argument("--no-provenance", action="store_true",
                         help="skip the platform-numerics fingerprint sidecar "
                              "(results_provenance.json)")
     parser.add_argument("--device", default="cuda",
                         help="torch device (default cuda; cpu for a run without a GPU)")
     args = parser.parse_args(argv)
-    if args.mesh > 1:
-        raise NotImplementedError(
-            "data-parallel training over several devices is not ported yet "
-            "(ROADMAP.md, 'Modules to port', item 'Multi-GPU and utils')")
     # float32 means float32: no TF32 rounding of matmul or convolution inputs
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -156,7 +156,8 @@ def main(argv=None):
         cfg = TrainConfig.from_dict(d)
 
         all_stats[experiment_name] = stats = {}
-        t, cap, mu = evaluate_shape(cfg, pc_file, device=args.device, stats=stats)
+        t, cap, mu = evaluate_shape(cfg, pc_file, device=args.device, stats=stats,
+                                    n_mesh_devices=args.mesh)
         with open(results_path, "a") as fh:
             fh.write(f"{experiment_name},{t},{cap[0]},{cap[1]},{cap[2]},"
                      f"{mu[0]},{mu[1]},{mu[2]}\n")

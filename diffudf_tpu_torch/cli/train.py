@@ -2,7 +2,8 @@
 
 The torch counterpart of ``diffudf_tpu/cli/train.py``:
 
-    python -m diffudf_tpu_torch.cli.train <config.json> [device_ordinal] [--resume] [--device cpu]
+    python -m diffudf_tpu_torch.cli.train <config.json> [device_ordinal] [--resume]
+        [--device cpu] [--mesh N]
 
 ``setup_train`` follows the JAX package's pipeline: output dirs and
 ``params.json``, the sampler and its oracle (by default built on a host
@@ -14,7 +15,16 @@ the plane's GT distances: the triangle table in mesh mode, the brute
 nearest-point distance to the cloud in point-cloud mode, one K5 launch) and
 the final marching-cubes reconstructions (``cli/generate_mc.py::run_mc``).
 Mesh input (``<dataset>_t.obj``) by default, point-cloud input with
-``"onlyPCloud": true``.  One device: data parallelism is not ported.
+``"onlyPCloud": true``.
+
+``--mesh N`` trains data-parallel on N ranks (``cuda:0..N-1``, or N gloo
+ranks with ``--device cpu``; :mod:`..parallel.mesh`), as the JAX CLI's
+``--mesh`` trains over N devices, and ``--mesh 1`` pins one device.
+Without ``--mesh``, a run with no ``device_ordinal`` takes every visible
+GPU (one on the CPU), and a run that names one trains on that GPU alone,
+so one experiment per GPU stays on its GPU; ``--mesh N`` ≥ 2 with an
+ordinal other than 0 raises.  Under ``torchrun`` each process is one rank
+of the launcher's group.  Rank 0 alone writes files and prints.
 """
 
 from __future__ import annotations
@@ -34,12 +44,15 @@ from ..data.mesh_distance import (point_cloud_distance, point_triangle_distance_
                                   point_triangle_distance_table, triangles_from_mesh)
 from ..data.mesh_io import load_mesh, load_point_cloud
 from ..data.sampling import TrainingSampler
+from ..parallel.mesh import spread
 from ..train import checkpoint as ckpt
 from ..train.loop import Trainer
 from ..utils.metrics import ScalarLogger
 from .generate_df import slice_figure
 
 SLICE_WIDTH = 512  # the figure's plane samples a side (JAX ``train.py:287-292``)
+# seconds a rank other than 0 waits for rank 0 to write the oracle cache
+CACHE_WAIT_S = 600.0
 
 
 def _cache_path(cfg: TrainConfig):
@@ -61,41 +74,42 @@ def _load_inputs(cfg: TrainConfig):
     return pc, mesh.vertices[mesh.faces], mesh
 
 
-def build_sampler(cfg: TrainConfig, device="cuda"):
+def build_sampler(cfg: TrainConfig, device="cuda", cache_writer: bool = True):
     """Load ``<dataset>_pc.ply`` (and ``<dataset>_t.obj`` in mesh mode) and
     build the sampler with its candidate-grid oracle.
 
     The one-shot build is cached on disk next to the preprocessed asset
     (``<dataset>_oracle_cache.npz.{tri,pc}_cand.npz``, content hashed,
     shared with the JAX package; see :mod:`..data.oracle_cache`).  Set
-    ``DIFFUDF_ORACLE_CACHE=0`` to disable.  -> (sampler, cloud, mesh or
-    None)."""
+    ``DIFFUDF_ORACLE_CACHE=0`` to disable.  ``cache_writer=False`` (the
+    data-parallel ranks other than 0) waits for another process to write
+    the cache.  -> (sampler, cloud, mesh or None)."""
     pc, tris, mesh = _load_inputs(cfg)
+    kw = dict(cache_path=_cache_path(cfg), device=device,
+              cache_wait_s=0.0 if cache_writer else CACHE_WAIT_S)
     if tris is None:
         sampler = TrainingSampler.from_point_cloud(
-            pc.points, pc.normals, cfg.batch_size, cfg.sampling_percentiles,
-            cache_path=_cache_path(cfg), device=device)
+            pc.points, pc.normals, cfg.batch_size, cfg.sampling_percentiles, **kw)
     else:
         sampler = TrainingSampler.from_mesh(
-            pc.points, pc.normals, tris, cfg.batch_size, cfg.sampling_percentiles,
-            cache_path=_cache_path(cfg), device=device)
+            pc.points, pc.normals, tris, cfg.batch_size, cfg.sampling_percentiles, **kw)
     return sampler, pc, mesh
 
 
-def build_sampler_overlapped(cfg: TrainConfig, device="cuda"):
+def build_sampler_overlapped(cfg: TrainConfig, device="cuda", cache_writer: bool = True):
     """Like :func:`build_sampler`, but the candidate-grid build runs on a
     host thread while training starts at once on an exact bootstrap oracle
     (:mod:`..data.async_build`).  -> (bootstrap sampler, cloud, mesh or
     None, handle); pass ``handle.poll`` as ``Trainer.run(sampler_update=…)``."""
     pc, tris, mesh = _load_inputs(cfg)
+    kw = dict(cache_path=_cache_path(cfg), device=device,
+              cache_wait_s=0.0 if cache_writer else CACHE_WAIT_S)
     if tris is None:
         sampler, handle = overlapped_pc_sampler(
-            pc.points, pc.normals, cfg.batch_size, cfg.sampling_percentiles,
-            cache_path=_cache_path(cfg), device=device)
+            pc.points, pc.normals, cfg.batch_size, cfg.sampling_percentiles, **kw)
     else:
         sampler, handle = overlapped_mesh_sampler(
-            pc.points, pc.normals, tris, cfg.batch_size, cfg.sampling_percentiles,
-            cache_path=_cache_path(cfg), device=device)
+            pc.points, pc.normals, tris, cfg.batch_size, cfg.sampling_percentiles, **kw)
     return sampler, pc, mesh, handle
 
 
@@ -132,8 +146,22 @@ def generate_final_meshes(params, spec, cfg: TrainConfig, out_dir: str, stats=No
 
 def setup_train(cfg: TrainConfig, make_meshes: bool = True, verbose: bool = True,
                 resume: bool = False, device="cuda", stats=None,
-                overlap_oracle: bool | None = None):
+                overlap_oracle: bool | None = None, n_mesh_devices: int = 0, group=None):
     """Programmatic entry.
+
+    ``n_mesh_devices`` N ≥ 2 trains data-parallel on N ranks
+    (:func:`..parallel.mesh.spread` over ``cuda:0..N-1``, or N gloo ranks
+    on the CPU; :class:`..train.loop.Trainer` with a group), and raises
+    ValueError when ``device`` names a CUDA index other than 0; 1 pins
+    ``device``; 0 (the default) takes every visible GPU when ``device`` is
+    ``"cuda"``, as the JAX package takes every device, and the one GPU
+    ``device`` names otherwise (``"cuda:1"`` trains on cuda:1 alone).
+    Batch groups that do not divide N take
+    the slower fallback step (a RuntimeWarning).  ``group``: run as this
+    rank of a group the caller started.  Rank 0 alone writes the output
+    directory, checkpoints, ``losses.csv``, the TensorBoard events, the
+    figure and the meshes, and prints; the other ranks return
+    ``(training seconds, None, state)``.
 
     ``resume=True`` continues an interrupted run from
     ``models/train_state.npz`` (params, optimizer state, epoch and key; a
@@ -162,24 +190,33 @@ def setup_train(cfg: TrainConfig, make_meshes: bool = True, verbose: bool = True
     ``meshes`` is the ``(meshMU, meshCAP)`` pair, a mesh in siren mode, or
     None when ``make_meshes`` is off.
     """
+    if group is None:
+        return spread(setup_train, device, n_mesh_devices, cfg=cfg, make_meshes=make_meshes,
+                      verbose=verbose, resume=resume, stats=stats,
+                      overlap_oracle=overlap_oracle)
+    main_rank = group.rank == 0
+    verbose = verbose and main_rank
     if stats is None:
         stats = {}
-    full_path = ckpt.create_output_paths(cfg.checkpoint_path, cfg.experiment_name)
-    with open(osp.join(full_path, "params.json"), "w") as fh:
-        json.dump(cfg.to_dict(), fh, indent=4)
+    full_path = osp.join(".", cfg.checkpoint_path, cfg.experiment_name)
+    if main_rank:
+        full_path = ckpt.create_output_paths(cfg.checkpoint_path, cfg.experiment_name)
+        with open(osp.join(full_path, "params.json"), "w") as fh:
+            json.dump(cfg.to_dict(), fh, indent=4)
 
     if overlap_oracle is None:
         overlap_oracle = os.environ.get("DIFFUDF_ORACLE_OVERLAP", "1") != "0"
     t_pipeline = time.perf_counter()
     handle = None
     if overlap_oracle:
-        sampler, pc, mesh, handle = build_sampler_overlapped(cfg, device=device)
+        sampler, pc, mesh, handle = build_sampler_overlapped(cfg, device=device,
+                                                             cache_writer=main_rank)
     else:
-        sampler, pc, mesh = build_sampler(cfg, device=device)
+        sampler, pc, mesh = build_sampler(cfg, device=device, cache_writer=main_rank)
     stats["oracle_s"] = time.perf_counter() - t_pipeline
     spec = cfg.network.to_spec()
 
-    trainer = Trainer(spec, sampler, cfg)
+    trainer = Trainer(spec, sampler, cfg, group=group)
     state = trainer.init_state()
     start_epoch = 0
     models_dir = osp.join(full_path, "models")
@@ -198,8 +235,8 @@ def setup_train(cfg: TrainConfig, make_meshes: bool = True, verbose: bool = True
         params = ckpt.load_params(cfg.network.pretrained_dict, device=device)
         state = trainer.init_state(params=params)
 
-    # losses.csv only: TensorBoard event files are not written
-    logger = ScalarLogger(full_path, tensorboard=False)
+    # losses.csv and the TensorBoard events (summaries/)
+    logger = ScalarLogger(full_path, tensorboard=True) if main_rank else None
 
     def on_chunk(epoch_end, st, logs):
         start = epoch_end - len(logs["epoch_loss"])
@@ -227,8 +264,9 @@ def setup_train(cfg: TrainConfig, make_meshes: bool = True, verbose: bool = True
             print(f"Epoch: {epoch_end} - Loss: {float(logs['epoch_loss'][-1]):.6f}"
                   f" - Learning Rate: {float(logs['lr'][-1]):.3e}", flush=True)
 
-    state, _, train_time = trainer.run(state=state, start_epoch=start_epoch, callback=on_chunk,
-                                       sampler_update=handle.poll if handle else None)
+    state, _, train_time = trainer.run(
+        state=state, start_epoch=start_epoch, callback=on_chunk if main_rank else None,
+        sampler_update=handle.poll if handle else None)
     pipeline_time = time.perf_counter() - t_pipeline - trainer.callback_seconds
     stats["train_s"] = train_time
     swap = trainer.last_swap_epoch
@@ -250,6 +288,8 @@ def setup_train(cfg: TrainConfig, make_meshes: bool = True, verbose: bool = True
     for lo, hi, stage, secs in trainer.chunk_seconds:
         stats[f"{stage}_s"] = stats.get(f"{stage}_s", 0.0) + secs
         stats[f"{stage}_steps"] = stats.get(f"{stage}_steps", 0) + (hi - lo) * cfg.batches_per_epoch
+    if not main_rank:
+        return pipeline_time, None, state
 
     # losses.csv (reference ``train.py:394-395``; ';' separator)
     logger.flush_csv("losses.csv", exclude=("lr", "epoch_loss"))
@@ -276,22 +316,31 @@ def main(argv=None):
     parser = argparse.ArgumentParser(
         usage="python -m diffudf_tpu_torch.cli.train path_to_experiment.json [device]")
     parser.add_argument("experiment_path", type=str)
-    parser.add_argument("device_ordinal", type=int, nargs="?", default=0,
-                        help="CUDA device ordinal (reference-CLI parity)")
+    parser.add_argument("device_ordinal", type=int, nargs="?", default=None,
+                        help="CUDA device ordinal: train on that GPU alone (default: every "
+                             "visible GPU, or the --mesh N first ones)")
     parser.add_argument("--resume", action="store_true",
                         help="continue from models/train_state.npz")
     parser.add_argument("--device", default="cuda",
                         help="torch device (default cuda; cpu for a run without a GPU)")
+    parser.add_argument("--mesh", type=int, default=0, metavar="N",
+                        help="data-parallel training on N ranks (cuda:0..N-1, or N CPU "
+                             "ranks with --device cpu); N=1 pins one device. Default: "
+                             "every visible GPU, or the one device_ordinal names.")
     args = parser.parse_args(argv)
     cfg = TrainConfig.from_json(args.experiment_path)
     # float32 means float32: no TF32 rounding of matmul or convolution inputs
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    device = f"cuda:{args.device_ordinal}" if args.device == "cuda" else args.device
+    device = args.device
+    if device == "cuda" and args.device_ordinal is not None:
+        device = f"cuda:{args.device_ordinal}"
     stats = {}
-    result = setup_train(cfg, resume=args.resume, device=device, stats=stats)
-    print(f"Training time (incl. GT-oracle build): {result[0]:.1f}s")
-    print("Stats: " + json.dumps(stats))
+    result = setup_train(cfg, resume=args.resume, device=device, stats=stats,
+                         n_mesh_devices=args.mesh)
+    if int(os.environ.get("RANK", "0")) == 0:  # one line under torchrun
+        print(f"Training time (incl. GT-oracle build): {result[0]:.1f}s")
+        print("Stats: " + json.dumps(stats))
     return result, stats
 
 

@@ -102,15 +102,18 @@ class OracleBuildHandle:
 
 
 def overlapped_mesh_sampler(points, normals, tri_verts, batch_size, percentiles,
-                            stddev=0.01, cache_path: str | None = None, device="cuda"):
+                            stddev=0.01, cache_path: str | None = None, device="cuda",
+                            cache_wait_s=0.0):
     """(bootstrap sampler, handle) for mesh mode: training can start now;
-    the coordinate-table sampler arrives through ``handle.poll()``."""
+    the coordinate-table sampler arrives through ``handle.poll()``.
+    ``cache_wait_s`` > 0: another process writes the cache
+    (:mod:`.oracle_cache`)."""
     real = np.asarray(tri_verts, np.float32)
     boot = TrainingSampler.from_mesh_bootstrap(points, normals, real, batch_size,
                                                percentiles, stddev, device=device)
 
     def build():
-        return cached_candidate_grid_host(real, cache_path)
+        return cached_candidate_grid_host(real, cache_path, cache_wait_s)
 
     def upgrade(cand):
         table = build_triangle_table(boot.tri_verts, cand)
@@ -120,14 +123,14 @@ def overlapped_mesh_sampler(points, normals, tri_verts, batch_size, percentiles,
 
 
 def overlapped_pc_sampler(points, normals, batch_size, percentiles, stddev=0.01,
-                          cache_path: str | None = None, device="cuda"):
+                          cache_path: str | None = None, device="cuda", cache_wait_s=0.0):
     """(bootstrap sampler, handle) for point-cloud mode."""
     pts = np.asarray(points, np.float32)
     boot = TrainingSampler.from_point_cloud_bootstrap(pts, normals, batch_size, percentiles,
                                                       stddev, device=device)
 
     def build():
-        return cached_point_candidate_idx_host(pts, cache_path)
+        return cached_point_candidate_idx_host(pts, cache_path, cache_wait_s)
 
     def upgrade(idx):
         return dataclasses.replace(boot, pc_candidates=torch.as_tensor(pts[idx], device=device))

@@ -15,12 +15,18 @@ unwritable directory degrades to a warning, never an error.
 
 The ``*_host`` functions return numpy and touch no device: the background
 build thread of :mod:`.async_build` runs them.
+
+In a data-parallel run rank 0 alone builds and writes a missing cache;
+the other ranks pass ``wait_s`` and read the file once it lands (they
+build their own copy, and write nothing, if it has not landed after
+``wait_s`` seconds), so no two ranks race on one file.
 """
 
 from __future__ import annotations
 
 import hashlib
 import os
+import time
 import warnings
 import zipfile
 
@@ -69,6 +75,17 @@ def _load(path: str, field: str, key: str) -> np.ndarray | None:
     return _read_field(path, field, key)
 
 
+def _load_or_wait(path: str, field: str, key: str, wait_s: float) -> np.ndarray | None:
+    """:func:`_load`, polling for up to ``wait_s`` seconds while another
+    process writes the file."""
+    deadline = time.monotonic() + wait_s
+    while True:
+        hit = _load(path, field, key)
+        if hit is not None or not path or time.monotonic() >= deadline:
+            return hit
+        time.sleep(0.1)
+
+
 def _store(path: str, field: str, key: str, idx: np.ndarray) -> None:
     """Write one oracle field to its own npz (concurrent-writer safe)."""
     if not path:
@@ -88,50 +105,58 @@ def _store(path: str, field: str, key: str, idx: np.ndarray) -> None:
             pass
 
 
-def cached_candidate_grid_host(tri_verts, cache_path: str | None) -> np.ndarray:
+def cached_candidate_grid_host(tri_verts, cache_path: str | None,
+                               wait_s: float = 0.0) -> np.ndarray:
     """``build_candidate_grid`` with an optional npz disk cache, host side.
 
     tri_verts: (T, 3, 3) host array.  Returns the (g³, k) int32 candidate
     grid as numpy, loaded from ``cache_path`` when the stored SHA-1 of the
-    triangle bytes and grid constants matches."""
+    triangle bytes and grid constants matches.  ``wait_s`` > 0: another
+    process writes the cache (see the module docstring)."""
     tv = np.asarray(tri_verts, np.float32)
     g, k = md.CAND_GRID_G, md.CAND_GRID_K
     lo, hi = md.CAND_GRID_LO, md.CAND_GRID_HI
     key = _key("tri", tv, g, k, lo, hi)
-    hit = _load(cache_path, "tri_cand", key)
+    hit = _load_or_wait(cache_path, "tri_cand", key, wait_s)
     if hit is not None:
         return hit.astype(np.int32)
     cand = md.build_candidate_grid(tv)
-    if cache_path:
+    if cache_path and not wait_s:
         _store(cache_path, "tri_cand", key, cand)
     return cand
 
 
-def cached_candidate_grid(tri_verts, cache_path: str | None, device="cuda") -> torch.Tensor:
+def cached_candidate_grid(tri_verts, cache_path: str | None, device="cuda",
+                          wait_s: float = 0.0) -> torch.Tensor:
     """:func:`cached_candidate_grid_host` as an int32 tensor on ``device``."""
-    return torch.as_tensor(cached_candidate_grid_host(tri_verts, cache_path), device=device)
+    return torch.as_tensor(cached_candidate_grid_host(tri_verts, cache_path, wait_s),
+                           device=device)
 
 
-def cached_point_candidate_idx_host(cloud, cache_path: str | None) -> np.ndarray:
+def cached_point_candidate_idx_host(cloud, cache_path: str | None,
+                                    wait_s: float = 0.0) -> np.ndarray:
     """pc-oracle candidate *indices* with an optional disk cache, host side.
 
     cloud: (N, 3) host array.  Returns (g³, k) int32 numpy indices into
-    the cloud (gather ``cloud[idx]`` for the coordinate table)."""
+    the cloud (gather ``cloud[idx]`` for the coordinate table); ``wait_s``
+    as :func:`cached_candidate_grid_host`."""
     pts = np.asarray(cloud, np.float32)
     g, k = md.CAND_GRID_G, md.CAND_PTS_K
     lo, hi = md.CAND_GRID_LO, md.CAND_GRID_HI
     key = _key("pc", pts, g, k, lo, hi)
-    hit = _load(cache_path, "pc_cand", key)
+    hit = _load_or_wait(cache_path, "pc_cand", key, wait_s)
     if hit is not None:
         return hit.astype(np.int32)
     idx = md.build_point_candidate_indices(pts)
-    if cache_path:
+    if cache_path and not wait_s:
         _store(cache_path, "pc_cand", key, idx)
     return idx
 
 
-def cached_point_candidate_grid(cloud, cache_path: str | None, device="cuda") -> torch.Tensor:
+def cached_point_candidate_grid(cloud, cache_path: str | None, device="cuda",
+                                wait_s: float = 0.0) -> torch.Tensor:
     """``build_point_candidate_grid`` with an optional npz disk cache: the
     (g³, k, 3) float32 coordinate table on ``device``."""
     pts = np.asarray(cloud, np.float32)
-    return torch.as_tensor(pts[cached_point_candidate_idx_host(pts, cache_path)], device=device)
+    return torch.as_tensor(pts[cached_point_candidate_idx_host(pts, cache_path, wait_s)],
+                           device=device)

@@ -1,5 +1,5 @@
 """Training batch sampling on the device: the torch copy of
-``diffudf_tpu/data/sampling.py`` on one device.
+``diffudf_tpu/data/sampling.py``.
 
 Batch layout matches the reference contract (``src/dataset.py:54-70``):
 rows = [on-surface | far-uniform | near-surface], normals zero off-surface,
@@ -105,15 +105,17 @@ class TrainingSampler:
 
     @classmethod
     def from_point_cloud(cls, points, normals, batch_size, percentiles, stddev=0.01,
-                         cache_path: str | None = None, device="cuda"):
+                         cache_path: str | None = None, device="cuda", cache_wait_s=0.0):
         """``cache_path`` (optional) caches the one-shot candidate-grid
-        build on disk, keyed by the cloud bytes (:mod:`.oracle_cache`)."""
+        build on disk, keyed by the cloud bytes (:mod:`.oracle_cache`;
+        ``cache_wait_s`` > 0: another process writes it)."""
         from .oracle_cache import cached_point_candidate_grid
 
         pts, nrm = _device_points(points, normals, device)
+        table = cached_point_candidate_grid(points, cache_path, device=device,
+                                            wait_s=cache_wait_s)
         return cls(pts, nrm, BatchSizes.from_config(batch_size, percentiles),
-                   pc_candidates=cached_point_candidate_grid(points, cache_path, device=device),
-                   stddev=stddev)
+                   pc_candidates=table, stddev=stddev)
 
     @classmethod
     def from_point_cloud_bootstrap(cls, points, normals, batch_size, percentiles,
@@ -140,7 +142,8 @@ class TrainingSampler:
 
     @classmethod
     def from_mesh(cls, points, normals, tri_verts, batch_size, percentiles, stddev=0.01,
-                  oracle_layout: str = "table", cache_path: str | None = None, device="cuda"):
+                  oracle_layout: str = "table", cache_path: str | None = None, device="cuda",
+                  cache_wait_s=0.0):
         """``oracle_layout="table"`` (default) materialises the candidate
         grid as per-cell triangle *coordinates* (``build_triangle_table``):
         the per-step oracle is one contiguous row gather a query.
@@ -148,13 +151,14 @@ class TrainingSampler:
         place of 382) and gathers k triangles a query.
 
         ``cache_path`` (optional) caches the one-shot candidate-grid build
-        on disk, keyed by the triangle bytes (:mod:`.oracle_cache`)."""
+        on disk, keyed by the triangle bytes (:mod:`.oracle_cache`;
+        ``cache_wait_s`` > 0: another process writes it)."""
         from .oracle_cache import cached_candidate_grid
 
         if oracle_layout not in ("table", "indices"):
             raise ValueError(f"unknown oracle_layout: {oracle_layout!r}")
         real = np.asarray(tri_verts, np.float32)
-        cand = cached_candidate_grid(real, cache_path, device=device)
+        cand = cached_candidate_grid(real, cache_path, device=device, wait_s=cache_wait_s)
         tris = torch.as_tensor(real, device=device)
         pts, nrm = _device_points(points, normals, device)
         sizes = BatchSizes.from_config(batch_size, percentiles)
@@ -171,6 +175,23 @@ class TrainingSampler:
     def oracle(self) -> str:
         """``"mesh"`` or ``"pointcloud"``, from the tensors that are set."""
         return "pointcloud" if self.tri_table is None and self.tri_verts is None else "mesh"
+
+    def local(self, n_devices: int) -> "TrainingSampler":
+        """Per-rank sampler for the data-parallel step: each rank draws its
+        own ``batch/n_devices`` sub-batch in the same [surf|far|near]
+        layout, so the single-device loss (the split Hessian and the fused
+        kernels) runs unchanged on each rank.  Raises ValueError when a
+        group does not divide."""
+        sz = self.sizes
+        for name, v in (("on_surface", sz.on_surface), ("far", sz.far), ("near", sz.near)):
+            if v % n_devices:
+                raise ValueError(
+                    f"batch group {name}={v} not divisible by mesh size "
+                    f"{n_devices}; pick batch_size/sampling_percentiles that "
+                    f"split evenly"
+                )
+        return dataclasses.replace(self, sizes=BatchSizes(
+            sz.on_surface // n_devices, sz.far // n_devices, sz.near // n_devices))
 
     def sample(self, gen: torch.Generator):
         """-> (points (B,3), normals (B,3), sdf (B,1)), B = sizes.total."""

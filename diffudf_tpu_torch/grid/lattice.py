@@ -10,6 +10,11 @@ fastest, over [-1, 1]³ with spacing 2/(N−1).  As in the JAX package, the
 |∇f| < 0.04 Hessian fallback is tested on the raw gradient norm, before
 normalisation (the reference's slice renderer's behaviour, not its mesh
 extractor's).
+
+``group`` (:mod:`..parallel.mesh`, the JAX ``mesh``): every field
+evaluation is split over the ranks (``evaluate_field(group=)``), each rank
+gets the gathered values, and the host band logic runs on every rank on
+the same arrays.
 """
 
 from __future__ import annotations
@@ -61,12 +66,12 @@ def direction_field(grad, hess, threshold: float = GRAD_NORM_THRESHOLD):
 
 
 def extract_fields(params, spec: SirenSpec, N: int, gt_mode: str, alpha: float,
-                   *, tile: int = 8192, use_pallas=None):
+                   *, tile: int = 8192, use_pallas=None, group=None):
     """-> (udf (N, N, N), dirs (N, N, N, 3)) float32 tensors on the params'
     device: the dense fused pass over all N³ points."""
     pts = lattice_points(N, device=_device(params))
     ev = evaluate_field(params, spec, pts, want_grad=True, want_hess=True, tile=tile,
-                        use_pallas=use_pallas)
+                        use_pallas=use_pallas, group=group)
     udf = inverse_map(gt_mode, torch.abs(ev.f), alpha)
     dirs = direction_field(ev.grad, ev.hess)
     return udf.reshape(N, N, N), dirs.reshape(N, N, N, 3)
@@ -87,6 +92,7 @@ def extract_fields_sparse(
     use_pallas=None,
     cap_threshold: float = CAP_THRESHOLD,
     stats: dict | None = None,
+    group=None,
 ):
     """Hierarchical (coarse → band-refined) field extraction → host numpy.
 
@@ -124,13 +130,13 @@ def extract_fields_sparse(
         stats = {}
     if not s or s == 1:
         udf, dirs = extract_fields(params, spec, N, gt_mode, alpha, tile=tile,
-                                   use_pallas=use_pallas)
+                                   use_pallas=use_pallas, group=group)
         return udf.cpu().numpy(), dirs.cpu().numpy()
 
     t0 = time.perf_counter()
     Nc = (N - 1) // s + 1
     # stage 1: coarse sub-lattice values (coincides with the fine lattice)
-    evc = evaluate_field(params, spec, lattice_points(Nc, device=dev), tile=tile)
+    evc = evaluate_field(params, spec, lattice_points(Nc, device=dev), tile=tile, group=group)
     ud_c = inverse_map(gt_mode, torch.abs(evc.f), alpha).cpu().numpy().reshape(Nc, Nc, Nc)
 
     # CAP's cell gate is absolute (min corner < threshold) and its vote
@@ -155,7 +161,7 @@ def extract_fields_sparse(
     if not active.any():
         # no surface found at coarse scale — degenerate field; stay exact
         udf, dirs = extract_fields(params, spec, N, gt_mode, alpha, tile=tile,
-                                   use_pallas=use_pallas)
+                                   use_pallas=use_pallas, group=group)
         return udf.cpu().numpy(), dirs.cpu().numpy()
 
     # stage 2: exact values at every vertex of an active block
@@ -166,7 +172,7 @@ def extract_fields_sparse(
         vmask[di : di + N - 1, dj : dj + N - 1, dk : dk + N - 1] |= cell_active
     idx = np.flatnonzero(vmask.ravel())
     idx_dev = torch.as_tensor(idx, device=dev)
-    ev = evaluate_field(params, spec, _decode_points(idx_dev, N), tile=tile)
+    ev = evaluate_field(params, spec, _decode_points(idx_dev, N), tile=tile, group=group)
     ud_v = inverse_map(gt_mode, torch.abs(ev.f), alpha).cpu().numpy()
     stats["stage2_s"] = time.perf_counter() - t0
     stats["band_points"] = int(idx.size)
@@ -179,7 +185,7 @@ def extract_fields_sparse(
     if idx2.size:
         ev2 = evaluate_field(
             params, spec, _decode_points(idx_dev[torch.as_tensor(sel, device=dev)], N),
-            want_grad=True, want_hess=True, tile=tile, use_pallas=use_pallas,
+            want_grad=True, want_hess=True, tile=tile, use_pallas=use_pallas, group=group,
         )
         dirs_flat[idx2] = direction_field(ev2.grad, ev2.hess).cpu().numpy()
     stats["stage3_s"] = time.perf_counter() - t0
@@ -190,7 +196,8 @@ def extract_fields_sparse(
     return udf_flat.reshape(N, N, N), dirs_flat.reshape(N, N, N, 3)
 
 
-def extract_sdf_grid(params, spec: SirenSpec, N: int, *, tile: int = 8192):
+def extract_sdf_grid(params, spec: SirenSpec, N: int, *, tile: int = 8192, group=None):
     """Raw field values on the lattice (signed-MC baseline path)."""
-    ev = evaluate_field(params, spec, lattice_points(N, device=_device(params)), tile=tile)
+    ev = evaluate_field(params, spec, lattice_points(N, device=_device(params)), tile=tile,
+                        group=group)
     return ev.f.reshape(N, N, N)

@@ -9,6 +9,11 @@ itself, so the points go in whole.  Everything else runs
 the plain torch functions of :mod:`..autodiff.ops` over fixed-size tiles:
 value-only passes are chains of ``torch.matmul`` (float32, no TF32), as the
 JAX package leaves them to XLA.
+
+With a ``group`` of several ranks (:mod:`..parallel.mesh`) each rank
+evaluates its contiguous block of the points on its own device, kernel
+included, and every rank gets the gathered rows.  (In the JAX package a
+mesh of several devices leaves Pallas; here each rank is one device.)
 """
 
 from __future__ import annotations
@@ -71,19 +76,35 @@ def evaluate_field(
     want_hess: bool = False,
     tile: int = 8192,
     use_pallas: bool | None = None,
+    group=None,
 ) -> FieldEval:
     """Evaluate f (+ ∇f, H) at (Q, 3) float32 points on their device.
 
     ``use_pallas`` keeps the JAX package's config key: None selects the
     fused kernel where it applies, False forces the plain torch path.
+    ``group``: every rank passes the same points; each evaluates its block
+    (``DataGroup.shard_rows``) and the rows are gathered.
     """
     points = points.to(torch.float32)
+    if group is not None and group.backend is not None:
+        n = points.shape[0]
+        part = _evaluate_packed(params, spec, points[group.shard_rows(n)], want_grad,
+                                want_hess, tile, use_pallas)
+        f, g, h6 = (None if t is None else group.gather_rows(t, n) for t in part)
+    else:
+        f, g, h6 = _evaluate_packed(params, spec, points, want_grad, want_hess, tile,
+                                    use_pallas)
+    return FieldEval(f=f, grad=g, hess=None if h6 is None else hess_from_packed(h6))
+
+
+def _evaluate_packed(params, spec, points, want_grad, want_hess, tile, use_pallas):
+    """-> (f, ∇f or None, packed H or None) of :func:`evaluate_field` on one
+    device."""
     use_kernel = _kernel_ok(spec, want_hess, points.device) and use_pallas is not False
     if use_kernel:
         from .vgh import vgh
 
-        f, g, h6 = vgh(params, spec, points.contiguous())
-        return FieldEval(f=f, grad=g, hess=hess_from_packed(h6))
+        return vgh(params, spec, points.contiguous())
 
     fs, gs, hs = [], [], []
     for lo in range(0, points.shape[0], tile):
@@ -100,9 +121,9 @@ def evaluate_field(
             gs.append(g)
     dev = points.device
     f = torch.cat(fs) if fs else torch.zeros(0, device=dev)
-    grad = hess = None
+    grad = h6 = None
     if want_grad or want_hess:
         grad = torch.cat(gs) if gs else torch.zeros((0, 3), device=dev)
     if want_hess:
-        hess = hess_from_packed(torch.cat(hs) if hs else torch.zeros((0, 6), device=dev))
-    return FieldEval(f=f, grad=grad, hess=hess)
+        h6 = torch.cat(hs) if hs else torch.zeros((0, 6), device=dev)
+    return f, grad, h6

@@ -15,6 +15,12 @@ device; each round reads back one count, which the stopping test needs.
 The random stream is a ``torch.Generator`` seeded by ``seed``, not the JAX
 key stream.
 
+With a ``group`` (:mod:`..parallel.mesh`, the JAX ``mesh``) every rank
+draws the same candidates (the count rounded up to a multiple of the group
+size, as the JAX sampler rounds it), projects its contiguous block on its
+own device, and every rank gets the gathered rows, so the rounds' keep
+logic runs on the same arrays everywhere.
+
 Normal orientation (:func:`orient_normals_consistent`) is the JAX package's
 numpy/scipy code, copied: Riemannian MST over the kNN graph with 1−|n·n'|
 weights, sign-propagated from the topmost point, as Open3D's
@@ -33,6 +39,7 @@ from ..autodiff.eigh3 import top_eigenvector_packed
 from ..fields.siren import SirenSpec
 from ..fields.transforms import inverse_map
 from ..ops.evaluate import field_fns, projection_launches, unit
+from ..parallel.mesh import pad_to_multiple
 
 
 @torch.no_grad()
@@ -47,6 +54,7 @@ def project_points(
     want_hessian_normals: bool,
     vg_fn=None,
     vgh_fn=None,
+    group=None,
 ):
     """-> (x_final, last_step_size (N,), normals (N, 3)), on x0's device.
 
@@ -55,7 +63,16 @@ def project_points(
     top eigenvector of H with ``want_hessian_normals`` (f and ∇f from the
     same pass), else ∇̂f.  ``vg_fn`` / ``vgh_fn`` (default
     :func:`..ops.evaluate.field_fns`) compute (f, ∇f) and (f, ∇f, h6).
+    ``group``: each rank projects its block of ``x0`` (every rank passes all
+    of it) and the results are gathered.
     """
+    if group is not None and group.backend is not None:
+        n = x0.shape[0]
+        part = project_points(params, spec, x0[group.shard_rows(n)], gt_mode=gt_mode,
+                              alpha=alpha, num_steps=num_steps,
+                              want_hessian_normals=want_hessian_normals, vg_fn=vg_fn,
+                              vgh_fn=vgh_fn)
+        return tuple(group.gather_rows(t, n) for t in part)
     default_vg, default_vgh = field_fns(spec)
     vg_fn, vgh_fn = vg_fn or default_vg, vgh_fn or default_vgh
     x = x0
@@ -89,6 +106,7 @@ def generate_point_cloud(
     max_iter: int = 1000,
     seed: int = 0,
     stats: dict | None = None,
+    group=None,
 ):
     """-> (points (≥num_points, 3), normals) as float32 numpy arrays, unless
     max_iter exhausts first (then a RuntimeWarning).
@@ -96,9 +114,12 @@ def generate_point_cloud(
     Runs on the params' device.  ``stats``: when given a dict, it receives
     ``rounds``, ``candidates`` and ``kept`` (one entry a round),
     ``project_s`` (the rounds' projections, device synchronised) and the
-    ``k3a_launches`` and ``k1_launches`` of the call.
+    ``k3a_launches`` and ``k1_launches`` of the call (this rank's, with a
+    ``group``: see the module docstring).
     """
     device = params[0]["w"].device
+    if group is not None and group.backend is not None:
+        num_points = pad_to_multiple(num_points, group.size)
     gen = torch.Generator(device=device).manual_seed(seed)
     hessian_normals = gt_mode != "siren"
     found = torch.zeros((0, 3), device=device)
@@ -124,7 +145,7 @@ def generate_point_cloud(
             t0 = time.perf_counter()
         x, step, nrm = project_points(
             params, spec, samples, gt_mode=gt_mode, alpha=alpha, num_steps=num_steps,
-            want_hessian_normals=hessian_normals,
+            want_hessian_normals=hessian_normals, group=group,
         )
         if record:
             _sync(device)

@@ -1,5 +1,5 @@
-"""Sphere tracing and hit-point differential geometry on one device: the
-torch counterpart of ``diffudf_tpu/render/tracer.py``.
+"""Sphere tracing and hit-point differential geometry: the torch
+counterpart of ``diffudf_tpu/render/tracer.py``.
 
 The march keeps the whole ray set on the device: per-ray active masks,
 positions updated in place, and only the active count crosses to the host
@@ -13,8 +13,13 @@ the net; elsewhere from the plain :func:`..autodiff.ops.value`.
 Hit attributes: normals are the Hessian's top eigenvector, ``pc1``/``pc2``
 the other two eigenvectors (principal-direction proxies for Ward shading);
 the curvature modes take the Jacobian of the unit-normal field by forward
-mode through the closed-form eigensolver.  Ray sharding over several
-devices (``mesh``) is not ported.
+mode through the closed-form eigensolver.
+
+Ray sharding (``group``, :mod:`..parallel.mesh`; the JAX ``mesh``): each
+rank marches its contiguous block of the rays on its own device (its own
+K4 launches and, in the compacted march, its own buckets, exiting when its
+rays converge), and every rank gets the gathered positions and hits; rays
+are independent, so a ray's result is the single-device march's.
 """
 
 from __future__ import annotations
@@ -60,9 +65,16 @@ def _march_while(params, spec, origins, rays, active0, *, gt_mode, alpha,
     return t0, hits, it
 
 
+def _gather_march(group, n, t0, hits, it):
+    """The ranks' blocks of a march -> (positions, hits, the most
+    iterations a rank used), the same on every rank."""
+    its = group.per_rank([it])
+    return group.gather_rows(t0, n), group.gather_rows(hits, n), int(its.max())
+
+
 def trace_rays(params, spec: SirenSpec, origins, rays, active0, *, gt_mode: str,
                alpha: float, surface_threshold: float, max_iterations: int = 100,
-               fast: bool = True, mesh=None):
+               fast: bool = True, group=None):
     """March ``t ← t + ray · inverse(|f(t)|)`` until convergence, on the
     params' device.  origins, rays (N, 3) and active0 (N,) are tensors or
     arrays.  -> (positions (N, 3), hits (N,) bool, iterations used).
@@ -70,17 +82,20 @@ def trace_rays(params, spec: SirenSpec, origins, rays, active0, *, gt_mode: str,
     A ray hits when its step (in siren mode its field value) drops below
     the threshold while still inside [-1, 1]³; it dies when it leaves the
     domain.  ``fast=True`` evaluates the field in the mixed bf16 mode.
+    ``group``: each rank marches its block of the rays (every rank passes
+    all of them) and the iterations are the most any rank used.
     """
-    if mesh is not None and mesh.size > 1:
-        raise NotImplementedError("ray sharding over several devices is not ported")
     dev = _device(params)
-    return _march_while(
-        params, spec, torch.as_tensor(origins, dtype=torch.float32, device=dev),
-        torch.as_tensor(rays, dtype=torch.float32, device=dev),
-        torch.as_tensor(active0, dtype=torch.bool, device=dev),
-        gt_mode=gt_mode, alpha=alpha, surface_threshold=surface_threshold,
-        max_iterations=max_iterations, compute_dtype=torch.bfloat16 if fast else None,
-    )
+    origins = torch.as_tensor(origins, dtype=torch.float32, device=dev)
+    rays = torch.as_tensor(rays, dtype=torch.float32, device=dev)
+    active0 = torch.as_tensor(active0, dtype=torch.bool, device=dev)
+    kw = dict(gt_mode=gt_mode, alpha=alpha, surface_threshold=surface_threshold,
+              max_iterations=max_iterations, compute_dtype=torch.bfloat16 if fast else None)
+    if group is None or group.backend is None:
+        return _march_while(params, spec, origins, rays, active0, **kw)
+    rows = group.shard_rows(origins.shape[0])
+    t0, hits, it = _march_while(params, spec, origins[rows], rays[rows], active0[rows], **kw)
+    return _gather_march(group, origins.shape[0], t0, hits, it)
 
 
 def _value_kernel_ok(spec: SirenSpec, device) -> bool:
@@ -240,7 +255,7 @@ def trace_rays_compacted(params, spec: SirenSpec, origins, rays, active0, *, gt_
                          alpha: float, surface_threshold: float, max_iterations: int = 100,
                          segment: int = 8, fast: bool = True, relaxation: float = 1.0,
                          pipeline_below: float = 0.0, return_device: bool = False,
-                         use_pallas: bool | None = None):
+                         use_pallas: bool | None = None, group=None):
     """March with periodic active-ray compaction, on the params' device.
 
     The march runs in rounds of ``segment`` iterations; before each round
@@ -258,8 +273,21 @@ def trace_rays_compacted(params, spec: SirenSpec, origins, rays, active0, *, gt_
     bf16 mode.  Same contract and result as
     :func:`trace_rays`: -> numpy (positions, hits, iterations), or device
     tensors with ``return_device=True``.  The caller's arrays are not
-    changed.
+    changed.  ``group``: each rank marches its block of the rays with its
+    own buckets, as :func:`trace_rays` does.
     """
+    if group is not None and group.backend is not None:
+        n_all = origins.shape[0]
+        rows = group.shard_rows(n_all)
+        t0, hits, it = trace_rays_compacted(
+            params, spec, origins[rows], rays[rows], active0[rows], gt_mode=gt_mode,
+            alpha=alpha, surface_threshold=surface_threshold, max_iterations=max_iterations,
+            segment=segment, fast=fast, relaxation=relaxation, pipeline_below=pipeline_below,
+            return_device=True, use_pallas=use_pallas)
+        t0, hits, it = _gather_march(group, n_all, t0, hits, it)
+        if return_device:
+            return t0, hits, it
+        return t0.cpu().numpy(), hits.cpu().numpy(), it
     dev = _device(params)
     n_real = origins.shape[0]
     n = _padded_rays(n_real)

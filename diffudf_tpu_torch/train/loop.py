@@ -1,5 +1,5 @@
-"""The training loop, on one device: the torch counterpart of
-``diffudf_tpu/train/loop.py`` without data parallelism.
+"""The training loop, on one device or data-parallel over a process group:
+the torch counterpart of ``diffudf_tpu/train/loop.py``.
 
 One *epoch* = ``batches_per_epoch`` (sample → loss → backward → Adam)
 updates, the reference accounting (``train.py:146-283``).  Epochs run in
@@ -26,12 +26,38 @@ Random keys: the state carries a (2,) uint32 key.  Each chunk seeds the
 sampling generator from it and replaces it by the next key of a fixed host
 chain, so a run resumed from a saved state draws the batches the
 uninterrupted run would have drawn.
+
+Data parallelism (``group``, a :class:`..parallel.mesh.DataGroup` of more
+than one rank; the JAX package's ``_build_sharded_batch_step`` and
+``_build_constrained_batch_step``):
+
+  * when every [surf|far|near] group of the batch divides the group size,
+    each rank draws its own ``batch/size`` sub-batch
+    (``TrainingSampler.local``) from a generator seeded by the chunk key
+    and its rank (:func:`rank_key`) and runs the unchanged single-device
+    loss on it, split Hessian and kernels included;
+  * otherwise (a RuntimeWarning, the JAX text) every rank draws the whole
+    batch from the single-device stream and takes its contiguous block of
+    rows (``DataGroup.shard_rows``); the surface rows lead the batch, so a
+    block's leading surface count is known and the split Hessian stays.
+
+Either way a rank holding ``B_r`` of the batch's ``B`` rows weights each
+s1/siren term by ``B_r / B`` (each term is a sum over the batch over its
+row count) and the weighted terms are summed over the group by the
+differentiable all-reduce; ``loss_s2`` sums its statistics over the group.
+Every rank then holds the terms of the whole batch, and the gradient of
+their sum is all-reduced and divided by the size (the all-reduce's backward
+already summed the gradient over the ranks), so every rank applies the
+gradient of the single-device loss on the union batch, bit for bit the
+same on each.  The logged terms, ``is_best`` and the best params follow
+from all-reduced values, so they agree across ranks too.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -42,6 +68,7 @@ from ..fields.siren import SirenSpec, init_siren
 from ..ops.kernel_io import kernel_spec_ok
 from ..ops.vg import vg_op
 from ..ops.vgh import vgh_op
+from ..parallel.mesh import DataGroup, single
 from .checkpoint import AdamState
 from .losses import loss_s1, loss_s2, loss_siren
 from .schedule import lr_for_epoch, lr_for_epoch_siren
@@ -72,6 +99,14 @@ def key_from_seed(seed: int) -> np.ndarray:
 def next_key(key) -> np.ndarray:
     return np.random.default_rng(np.asarray(key, np.uint32)).integers(
         0, 2**32, 2, dtype=np.uint32)
+
+
+def rank_key(key, rank: int) -> np.ndarray:
+    """The key rank ``rank`` of a data-parallel group seeds a chunk's
+    generator with, from the chunk's key: a fixed rule, so a resumed run
+    draws the batches of the uninterrupted one."""
+    seed = [int(k) for k in np.asarray(key, np.uint32)] + [int(rank)]
+    return np.random.default_rng(seed).integers(0, 2**32, 2, dtype=np.uint32)
 
 
 def generator_for(key, device) -> torch.Generator:
@@ -107,19 +142,45 @@ def adam_update(params, grads, opt: AdamState, lr: float) -> AdamState:
     return AdamState(count, opt.mu, opt.nu)
 
 
-class Trainer:
-    """Runs the epochs of one experiment on the sampler's device."""
+def _flat(tensors) -> torch.Tensor:
+    return torch.cat([t.reshape(-1) for t in tensors])
 
-    def __init__(self, spec: SirenSpec, sampler: TrainingSampler, cfg: TrainConfig):
+
+class Trainer:
+    """Runs the epochs of one experiment on the sampler's device; with a
+    ``group`` of several ranks, this rank's share of a data-parallel run
+    (see the module docstring)."""
+
+    def __init__(self, spec: SirenSpec, sampler: TrainingSampler, cfg: TrainConfig,
+                 group: DataGroup | None = None):
         self.spec = spec
         self.sampler = sampler
         self.cfg = cfg
         self.device = sampler.device
+        self.group = group if group is not None else single(sampler.device)
         fused = kernel_spec_ok(spec)
         self._vgh_op = vgh_op if fused else None
         self._vg_op = vg_op if fused else None
         self.chunk_seconds = []  # (lo, hi, stage, seconds) per chunk of the last run
         self.last_swap_epoch = None  # the epoch the last run swapped samplers at
+        # None on one rank; "sharded" (each rank its own sub-batch) or
+        # "constrained" (each rank a block of one batch) on several
+        self.dp = None
+        if self.group.backend is not None:
+            try:
+                sampler.local(self.group.size)
+                self.dp = "sharded"
+            except ValueError as exc:
+                warnings.warn(
+                    f"{exc} — falling back to the constrained-sharding DP "
+                    f"step (correct but slower; pick batch sizes whose "
+                    f"[surf|far|near] groups divide the mesh for the fast "
+                    f"path)", RuntimeWarning)
+                self.dp = "constrained"
+                rows = self.group.shard_rows(sampler.sizes.total)
+                if rows.stop <= rows.start:
+                    raise ValueError(f"a batch of {sampler.sizes.total} rows leaves rank "
+                                     f"{self.group.rank} of {self.group.size} no rows")
 
     # --- state ---------------------------------------------------------------
 
@@ -131,6 +192,9 @@ class Trainer:
         if params is None:
             params = init_siren(self.spec, np.random.default_rng(self.cfg.seed))
         params = self.as_leaves(params)
+        with torch.no_grad():  # every rank starts from rank 0's params
+            for t in _leaves(params):
+                self.group.broadcast(t)
         zeros = [{k: torch.zeros_like(v) for k, v in layer.items()} for layer in params]
         return TrainState(
             params=params,
@@ -149,16 +213,18 @@ class Trainer:
 
     # --- stage plumbing ------------------------------------------------------
 
-    def _loss_terms(self, stage, params, points, normals, sdf):
+    def _loss_terms(self, stage, params, points, normals, sdf, n_surface):
+        """Loss terms on this rank's rows; ``n_surface`` leading rows lie on
+        the surface.  s2's statistics are summed over the group."""
         cfg = self.cfg
         if stage == "s1":
             return loss_s1(params, self.spec, points, normals, sdf,
-                           cfg.loss_s1_weights, cfg.alpha,
-                           n_surface=self.sampler.sizes.on_surface,
+                           cfg.loss_s1_weights, cfg.alpha, n_surface=n_surface,
                            vgh_fn=self._vgh_op, vg_fn=self._vg_op)
         if stage == "s2":
+            group = self.group if self.group.backend is not None else None
             return loss_s2(params, self.spec, points, normals, sdf,
-                           cfg.loss_s2_weights, cfg.alpha)
+                           cfg.loss_s2_weights, cfg.alpha, group=group)
         if stage == "siren":
             return loss_siren(params, self.spec, points, normals, sdf, cfg.loss_weights)
         raise ValueError(stage)
@@ -189,6 +255,43 @@ class Trainer:
 
     # --- epochs --------------------------------------------------------------
 
+    def draw(self, gen: torch.Generator):
+        """This rank's rows of one batch -> (points, normals, sdf,
+        n_surface, share): ``n_surface`` leading rows lie on the surface,
+        and ``share`` is the rows' fraction of the whole batch."""
+        sz = self.sampler.sizes
+        if self.dp == "sharded":
+            local = self.sampler.local(self.group.size)
+            pts, nrm, sdf = local.sample(gen)
+            return pts, nrm, sdf, local.sizes.on_surface, 1.0 / self.group.size
+        pts, nrm, sdf = self.sampler.sample(gen)
+        if self.dp == "constrained":
+            rows = self.group.shard_rows(sz.total)
+            n_rows = rows.stop - rows.start
+            n_surface = min(max(sz.on_surface - rows.start, 0), n_rows)
+            return pts[rows], nrm[rows], sdf[rows], n_surface, n_rows / sz.total
+        return pts, nrm, sdf, sz.on_surface, 1.0
+
+    def batch_step(self, stage, params, points, normals, sdf, n_surface, share=1.0):
+        """Loss and gradient of one batch of which this rank holds the given
+        rows -> (terms row (in ``TERM_NAMES`` order), their sum, grads):
+        the terms of the whole batch and the gradient of their sum with
+        respect to ``params``, the same on every rank."""
+        terms = self._loss_terms(stage, params, points, normals, sdf, n_surface)
+        row = torch.stack([terms[k] for k in TERM_NAMES[stage]])
+        parallel = self.group.backend is not None
+        if parallel and stage != "s2":
+            row = self.group.all_reduce_sum(row * share)
+        total = row.sum()
+        grads = torch.autograd.grad(total, _leaves(params))
+        if parallel:
+            # the all-reduce's backward summed the gradient of the one loss
+            # over the ranks: the sum over the ranks is size times it
+            flat = self.group.all_reduce_sum(_flat(grads)) / self.group.size
+            grads = torch.split(flat, [g.numel() for g in grads])
+            grads = [g.view_as(p) for g, p in zip(grads, _leaves(params))]
+        return row, total, grads
+
     def epoch(self, state: TrainState, stage: str, epoch: int, gen: torch.Generator):
         """Run one epoch in place on ``state``; -> its log row, a device
         tensor (terms..., total) summed over the batches, then epoch_loss."""
@@ -196,11 +299,7 @@ class Trainer:
         names = TERM_NAMES[stage]
         sums = torch.zeros(len(names) + 1, device=self.device)
         for _ in range(self.cfg.batches_per_epoch):
-            pts, nrm, sdf = self.sampler.sample(gen)
-            terms = self._loss_terms(stage, state.params, pts, nrm, sdf)
-            row = torch.stack([terms[k] for k in names])
-            total = row.sum()
-            grads = torch.autograd.grad(total, _leaves(state.params))
+            row, total, grads = self.batch_step(stage, state.params, *self.draw(gen))
             state.opt_state = adam_update(state.params, grads, state.opt_state, lr)
             sums += torch.cat([row, total[None]]).detach()
         epoch_loss = sums[-1] / self.cfg.batches_per_epoch
@@ -242,13 +341,17 @@ class Trainer:
         ``logs`` maps term name -> np array of per-epoch values within the
         chunk (plus ``total``, ``lr`` and ``epoch_loss``).
 
-        ``sampler_update()`` (optional) is polled before every epoch; the
-        first time it returns a sampler, training goes on with that one (the
-        handover of a background oracle build, :mod:`..data.async_build`),
-        and ``self.last_swap_epoch`` records the epoch.  The JAX trainer
-        polls once a chunk, because its chunk is one compiled scan; here an
-        epoch is a Python call and the poll reads a flag.  The batches come
-        from the same generator stream either way.
+        ``sampler_update()`` (optional) is polled before every epoch until
+        it returns a sampler (the handover of a background oracle build,
+        :mod:`..data.async_build`).  Training goes on with that sampler from
+        the first epoch at which every rank of the group holds one (an
+        all-reduce of the flag; at once on a single device), so the swap
+        lands at the same epoch on every rank, and a rank whose build failed
+        keeps every rank on the bootstrap oracle.  ``self.last_swap_epoch``
+        records the epoch.  The JAX trainer polls once a chunk, because its
+        chunk is one compiled scan; here an epoch is a Python call and the
+        poll reads a flag.  The batches come from the same generator stream
+        either way.
 
         Returns (final_state, losses dict of full-length np arrays,
         training_seconds: chunk time with the device synchronised at each
@@ -260,20 +363,22 @@ class Trainer:
         self.callback_seconds = 0.0
         self.chunk_seconds = []
         self.last_swap_epoch = None
-        all_logs, train_time = [], 0.0
+        all_logs, train_time, pending = [], 0.0, None
         for lo, hi in self.chunk_edges(start_epoch, chunk_size):
             stage = self.stage_for_epoch(lo)
             names = TERM_NAMES[stage] + ("total", "epoch_loss")
             t0 = time.perf_counter()
-            gen = generator_for(state.key, self.device)
+            key = rank_key(state.key, self.group.rank) if self.dp == "sharded" else state.key
+            gen = generator_for(key, self.device)
             state.key = next_key(state.key)
             rows = []
             for e in range(lo, hi):
                 if sampler_update is not None:
-                    new_sampler = sampler_update()
-                    if new_sampler is not None:
-                        self.sampler, self.last_swap_epoch = new_sampler, e
-                        sampler_update = None  # one handover
+                    if pending is None:
+                        pending = sampler_update()
+                    if self.group.all_true(pending is not None):
+                        self.sampler, self.last_swap_epoch = pending, e
+                        sampler_update = None  # one handover, on every rank
                 rows.append(self.epoch(state, stage, e, gen))
             table = torch.stack(rows).cpu().numpy()  # the chunk's one host read
             secs = time.perf_counter() - t0

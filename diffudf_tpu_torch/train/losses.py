@@ -41,9 +41,10 @@ def loss_s1(params, spec, points, gt_normals, gt_sdf, weights, alpha,
     ``n_surface``: count of leading on-surface rows (the sampler's batch
     layout).  When given, the Hessian is only computed for those rows: the
     loss value is identical because ``hessian_constraint`` is masked to the
-    surface anyway.  ``vgh_fn`` / ``vg_fn`` (``ops.vgh.vgh_op`` /
-    ``ops.vg.vg_op``) then compute (f, g, h6) of the surface rows and (f, g)
-    of the others; the kernels mask their ragged last tile, so no padding.
+    surface anyway.  It may be 0 or every row (a data-parallel rank's
+    block).  ``vgh_fn`` / ``vg_fn`` (``ops.vgh.vgh_op`` / ``ops.vg.vg_op``)
+    then compute (f, g, h6) of the surface rows and (f, g) of the others;
+    the kernels mask their ragged last tile, so no padding.
     Without them the plain Taylor-mode functions of ``autodiff.ops`` run.
     """
     w0, w1, w2, w3 = (float(w) for w in weights)
@@ -53,7 +54,8 @@ def loss_s1(params, spec, points, gt_normals, gt_sdf, weights, alpha,
     need_h = w2 != 0
     need_g = w3 != 0
 
-    split = need_h and n_surface is not None and 0 < n_surface < points.shape[0]
+    # a data-parallel rank's block may hold only surface rows, or none
+    split = need_h and n_surface is not None and 0 <= n_surface <= points.shape[0]
 
     if need_h and not split:
         f, g, h6_surf = value_grad_hessian_packed(params, spec, points)
@@ -105,9 +107,14 @@ def loss_s1(params, spec, points, gt_normals, gt_sdf, weights, alpha,
     return terms
 
 
-def loss_s2(params, spec, points, gt_normals, gt_sdf, weights, alpha):
+def loss_s2(params, spec, points, gt_normals, gt_sdf, weights, alpha, group=None):
     """Stage-2 polish: |mean| and std of the on-surface field values, through
-    the exact ``torch.sin`` value path (``autodiff.ops.value``)."""
+    the exact ``torch.sin`` value path (``autodiff.ops.value``).
+
+    ``group`` (a :class:`..parallel.mesh.DataGroup`): each rank holds rows
+    of one batch, and the mean and variance are those of the whole batch's
+    on-surface set: ``n_on`` and ``sum_on``, then ``sse``, are summed over
+    the ranks (a local variance around a local mean does not average)."""
     w0, w1 = (float(w) for w in weights[:2])
     udf = gt_sdf[:, 0]
     on_surf = udf == 0
@@ -116,8 +123,13 @@ def loss_s2(params, spec, points, gt_normals, gt_sdf, weights, alpha):
 
     n_on = torch.sum(on_surf)
     sum_on = torch.sum(torch.where(on_surf, f, zero))
+    if group is not None:
+        n_on = group.all_reduce_sum(n_on.to(torch.float32))
+        sum_on = group.all_reduce_sum(sum_on)
     mean_on = sum_on / torch.clamp(n_on, min=1)
     sse = torch.sum(torch.where(on_surf, (f - mean_on) ** 2, zero))
+    if group is not None:
+        sse = group.all_reduce_sum(sse)
     var_on = sse / torch.clamp(n_on - 1, min=1)
 
     return {

@@ -101,8 +101,9 @@ def test_quantitative_writes_the_jax_csv_and_sidecar(tmp_path, monkeypatch):
     seen = []
 
     def fake_setup_train(cfg, make_meshes=True, verbose=True, resume=False, device="cuda",
-                         stats=None):
-        seen.append((cfg.experiment_name, cfg.only_pcloud, cfg.num_epochs, device))
+                         stats=None, n_mesh_devices=0):
+        seen.append((cfg.experiment_name, cfg.only_pcloud, cfg.num_epochs, device,
+                     n_mesh_devices))
         os.makedirs(osp.join(cfg.checkpoint_path, cfg.experiment_name), exist_ok=True)
         return 12.5, meshes[cfg.experiment_name], None
 
@@ -115,7 +116,7 @@ def test_quantitative_writes_the_jax_csv_and_sidecar(tmp_path, monkeypatch):
     argv = [str(tmp_path / "data"), out, "--config", str(tmp_path / "cfg.json"),
             "--device", "cpu"]
     tq.main(argv)
-    assert seen == [("a", True, 7, "cpu"), ("b", True, 7, "cpu")]
+    assert seen == [("a", True, 7, "cpu", 0), ("b", True, 7, "cpu", 0)]
     with open(osp.join(out, "results.csv")) as fh:
         lines = fh.read().splitlines()
     assert lines[0] + "\n" == jq.CSV_HEADER and len(lines) == 3
@@ -139,8 +140,10 @@ def test_quantitative_writes_the_jax_csv_and_sidecar(tmp_path, monkeypatch):
     with open(osp.join(out, "results_provenance.json")) as fh:
         prov = json.load(fh)
     assert prov["final_loss"] == 1.5 and prov["previous"]["final_loss"] == 1.0
-    with pytest.raises(NotImplementedError, match="data-parallel"):
-        tq.main(argv + ["--mesh", "2"])
+    # --mesh N reaches setup_train (data-parallel training on N ranks)
+    argv[1] = str(tmp_path / "out_mesh")
+    tq.main(argv + ["--mesh", "2", "--no-provenance"])
+    assert seen[2:] == [("a", True, 7, "cpu", 2), ("b", True, 7, "cpu", 2)]
 
 
 def test_fingerprint_records_the_torch_platform():

@@ -157,8 +157,9 @@ def test_quality_presets_match_jax():
 def test_port_imports_neither_jax_nor_the_jax_package(tmp_path):
     """Every module of the port imports, and a small render, point cloud,
     slice figures (``generate_df`` on a point cloud and on a mesh) and a
-    one-shape ``quantitative`` sweep run, without jax or the JAX package, and
-    without matplotlib and PIL."""
+    one-shape ``quantitative`` sweep trained on 2 CPU ranks (``--mesh 2``,
+    :mod:`diffudf_tpu_torch.parallel.mesh`) run, without jax or the JAX
+    package, and without matplotlib and PIL."""
     g = np.load(os.path.join(REPO, "tests", "golden", "st_image_golden.npz"))
     spec = SirenSpec(hidden=(64, 64, 64), w0=30.0)
     model = str(tmp_path / "model.npz")
@@ -195,7 +196,7 @@ def test_port_imports_neither_jax_nor_the_jax_package(tmp_path):
         "                      '64', '64', '64', '-a', '10', '--device', 'cpu'])\n"
         "train.SLICE_WIDTH = 16\n"
         "quantitative.main([tmp + '/data', tmp + '/sweep', '--config', tmp + '/sweep.json',\n"
-        "                   '--no-provenance', '--device', 'cpu'])\n"
+        "                   '--no-provenance', '--device', 'cpu', '--mesh', '2'])\n"
         "bad = [k for k in sys.modules if k.split('.')[0] in\n"
         "       ('jax', 'diffudf_tpu', 'matplotlib', 'PIL')]\n"
         "assert not bad, bad\n"
@@ -207,6 +208,8 @@ def test_port_imports_neither_jax_nor_the_jax_package(tmp_path):
     assert out.returncode == 0, out.stderr
     loaded = set(out.stdout.splitlines()[-1].split())  # after the CLIs' Stats lines
     assert len(loaded) > 20
+    assert {"diffudf_tpu_torch.parallel.mesh", "diffudf_tpu_torch.utils.timing",
+            "diffudf_tpu_torch.utils.profiling"} <= loaded
     assert os.path.exists(tmp_path / "st.png") and os.path.exists(tmp_path / "pc.ply")
     for name in ("distance_fields.png", "pred_grad.png"):
         assert os.path.exists(tmp_path / "df" / name)

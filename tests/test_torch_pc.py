@@ -193,6 +193,7 @@ def test_generate_pc_cli(tmp_path, grid_field):
     assert len(back.points) == len(pc.points) >= 500
     np.testing.assert_allclose(back.points, pc.points, atol=1e-7)
     assert stats["orient_s"] >= 0 and sum(stats["kept"]) == len(pc.points)
+    # shard_points on the CPU: every visible device is one, a group of one
     (tmp_path / "shard.json").write_text(json.dumps(dict(cfg, shard_points=True)))
-    with pytest.raises(NotImplementedError, match="item 5"):
-        generate_pc.main([str(tmp_path / "shard.json"), "--device", "cpu"])
+    sharded, _ = generate_pc.main([str(tmp_path / "shard.json"), "--device", "cpu"])
+    assert np.array_equal(sharded.points, pc.points)

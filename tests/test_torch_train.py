@@ -246,6 +246,7 @@ def test_cli_trains_across_the_stage_boundary(tmp_path, monkeypatch):
     assert rows[1][4] == "" and rows[4][0] == ""  # s1 rows lack std, s2 rows lack grad
     for name in ("model_best", "model_current", "model_final"):
         assert os.path.exists(os.path.join(out, "models", name + ".npz"))
+    assert os.listdir(os.path.join(out, "summaries"))  # TensorBoard event files
     assert set(stats["figure"]) == {"predict_s", "gt_s", "render_s"}
     for name in ("distance_fields.png", "pred_grad.png"):
         assert os.path.exists(os.path.join(out, "reconstructions", name))
