@@ -13,7 +13,9 @@ slice figures of ``cli.generate_df`` at width 512 on the trained torus;
 mesh-input training, ``cli.train`` on the trefoil's mesh with the same
 recipe; the GT-mesh render of ``cli.generate_st``; point-cloud extraction,
 ``cli.generate_pc`` on the trained torus; and the enhanced extraction,
-``cli.generate_mc`` at N=385 with vertex refinement.  It
+``cli.generate_mc`` at N=385 with vertex refinement; the auxiliary
+regularisers on the kernels, the winding number of a mesh and the MeshUDF
+sign relaxation on the card.  It
 holds every kernel of those paths against its plain torch version: K1 (f,
 grad f, Hessian), K2 (its VJP), K3a (f, grad f), K3b (its VJP), K4 (f
 alone, the march's value) and K5 (the nearest cloud point's distance).
@@ -178,7 +180,31 @@ Phases, in order, each printing its seconds:
                 the hits differ), ``generate_pc`` with ``shard_points`` on
                 phase 15's config (phase 15's distance and normal gates,
                 max |delta| against phase 15's cloud printed); each rank's
-                launches by path.
+                launches by path;
+ 19. leftovers — the auxiliary regularisers on phase 7's torus at the
+                recipe's batch: ``total_variation`` on its first 10,000
+                off-surface rows (K1 + K2) and ``grad_consistency`` on its
+                9,990 surface rows (K3a + K3b), one launch of each kernel a
+                call with its backward, against the same function on the
+                kernels' plain versions (each term within the tolerance of
+                the output it is built on + RTOL |plain|; the parameter
+                gradients' max and RMS distance from the plain versions in
+                float64 at most WITNESS times the float32 plain versions';
+                on the regulariser's own rows and cotangents, the forward
+                kernel and the backward kernel under phase 8's element
+                gates), and their times; printed beside them, the plain
+                Taylor-mode path against the plain versions in phase 8's
+                GTOL form, the rows whose |.| kinks the kernels' and the
+                plain versions' forwards put on opposite sides, and the
+                kernels' GTOL form without those rows; ``winding_number`` and
+                ``signed_mesh_distance`` of the raw data/demo/torus.obj at
+                262,144 queries on the card: no sign wrong against the
+                analytic torus outside a 1e-3 band of its surface, |d| the
+                brute sweep's bits, their times; the MeshUDF sign
+                relaxation of phase 5's sphere grid on the host and on the
+                card (``DIFFUDF_RELAX_ON_DEVICE=1``, the upload included):
+                its seconds both ways, the signs that differ, and both
+                "mst" meshes' Chamfer-L1 within phase 5's limit.
 
 Then a ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}`` line.
 Any failed phase raises, and the script exits non-zero without those two
@@ -186,6 +212,7 @@ lines.  Files go to a temporary directory and the build directory only.
 """
 
 import concurrent.futures
+import contextlib
 import json
 import os
 import re
@@ -292,6 +319,15 @@ MAX_PC_FIELD_ERROR = 2e-3
 MIN_PC_NORMAL_COS = 0.95
 MIN_ORIENTED_SHARE = 0.9
 JAX_ENHANCED_TORUS_L1 = {"CAP": 0.008765, "MU": 0.008766}
+# Phase 19: the auxiliary regularisers at the recipe's batch of phase 7's
+# torus (its 9,990 surface rows for grad_consistency, its first 10,000
+# off-surface rows for total_variation); the winding number and signed
+# distance of the raw demo torus, a (0.6, 0.25) torus of 16,384 triangles
+# (scripts/make_demo.py) whose facets lie within about 6e-4 of the analytic
+# surface, at N_WINDING queries: the sign against the analytic inside test
+# off a TORUS_BAND band of that surface.
+TORUS_R, TORUS_TUBE, TORUS_BAND = 0.6, 0.25, 1e-3
+N_WINDING, N_TV_ROWS = 262144, 10000
 
 
 def phase(name):
@@ -585,19 +621,19 @@ def slice_phase(tmp, model_path):
     return stats, launches, chamfer
 
 
-def sphere_chamfer(meshes, tag):
+def sphere_chamfer(meshes, tag, names=("MU", "CAP")):
     """Both meshes' Chamfer-L1 against 100k points of the sphere, each
     within MAX_CHAMFER_L1; -> {name: Chamfer-L1}."""
     rng = np.random.default_rng(2)
     ref = RADIUS * unit_sphere_points(100000, rng)
     chamfer = {}
-    for name, m in zip(("MU", "CAP"), meshes):
+    for name, m in zip(names, meshes):
         v, f = np.asarray(m.vertices, np.float64), np.asarray(m.faces)
         if len(f) == 0 or not np.isfinite(v).all() or v.shape[1] != 3:
             raise AssertionError(f"{name} mesh is empty or not finite")
         chamfer[name] = chamfer_l1(sample_mesh(v, f, 100000, rng), ref)
-    print(f"{tag} Chamfer-L1 vs 100k sphere points: MU {chamfer['MU']:.5f}, "
-          f"CAP {chamfer['CAP']:.5f} (bound {MAX_CHAMFER_L1})")
+    print(f"{tag} Chamfer-L1 vs 100k sphere points: "
+          f"{', '.join(f'{n} {c:.5f}' for n, c in chamfer.items())} (bound {MAX_CHAMFER_L1})")
     for name, c in chamfer.items():
         if not c <= MAX_CHAMFER_L1:
             raise AssertionError(f"{name} Chamfer-L1 {c} > {MAX_CHAMFER_L1}")
@@ -2025,6 +2061,392 @@ def sharded_serving_phase(tmp, sphere_path, run, render, pc):
             "pc_normal_cos": normal_cos, "pc_delta": delta, "seconds": seconds}
 
 
+def timed_once(fn):
+    """(CUDA-event milliseconds of one fn() call, its result)."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end), out
+
+
+class relax_on_device:
+    """DIFFUDF_RELAX_ON_DEVICE=1 inside the block, as it was after it."""
+
+    def __enter__(self):
+        self.before = os.environ.get("DIFFUDF_RELAX_ON_DEVICE")
+        os.environ["DIFFUDF_RELAX_ON_DEVICE"] = "1"
+
+    def __exit__(self, *exc):
+        if self.before is None:
+            del os.environ["DIFFUDF_RELAX_ON_DEVICE"]
+        else:
+            os.environ["DIFFUDF_RELAX_ON_DEVICE"] = self.before
+
+
+class PlainOp(torch.autograd.Function):
+    """A kernel pair's plain versions under one autograd op, on the card:
+    ``fwd`` (``vgh_reference`` or ``vg_reference``) and its hand-derived
+    backward ``bwd`` on the packed cotangent of ``cols`` columns, as
+    ``VghOp`` and ``VgOp`` pair the kernels."""
+
+    @staticmethod
+    def forward(ctx, fwd, bwd, cols, spec, x, *leaves):
+        from diffudf_tpu_torch.ops import kernel_io as kio
+
+        ctx.bwd, ctx.cols, ctx.spec = bwd, cols, spec
+        ctx.save_for_backward(x, *leaves)
+        return tuple(t.contiguous() for t in fwd(kio.params_from_leaves(leaves), spec, x))
+
+    @staticmethod
+    def backward(ctx, *bars):
+        from diffudf_tpu_torch.ops import kernel_io as kio
+
+        x, *leaves = ctx.saved_tensors
+        cot = torch.cat([bars[0][:, None], *bars[1:]], dim=1)
+        cot = torch.cat([cot, cot.new_zeros((len(x), ctx.cols - cot.shape[1]))], dim=1)
+        grads = ctx.bwd(kio.params_from_leaves(leaves), ctx.spec, x, cot.contiguous())
+        return (None,) * 5 + kio.param_leaves(grads)
+
+
+def regularisers(run, failed):
+    """total_variation (K1 + K2) and grad_consistency (K3a + K3b) on the
+    trained torus, through the kernels and through their plain versions
+    (``PlainOp``) on the card, in phase 8's forms; -> their launches,
+    errors and times.
+
+    Each term within the tolerance of the output it is built on (a mean
+    moves no more than its rows) + RTOL |plain|; the parameter gradients'
+    max and RMS distance from the plain versions' float64 run at most
+    WITNESS times the plain versions' own; and phase 8's element gates on
+    the regulariser's own rows and cotangents: the forward kernel within
+    TOL + RTOL |plain|, the backward kernel within GTOL * max(max |plain|,
+    1) + RTOL |plain| of its plain version.
+
+    Printed beside them, to tell the loss from the kernels: the end-to-end
+    gradients in phase 8's GTOL form of the kernels and of the plain
+    Taylor-mode path against the plain versions, and of each term alone;
+    the rows whose |.| kinks (``kink_args``) the two forwards put on
+    different sides, and the 1% of rows of smallest |grad f|, each with
+    its share of the gap and the kernels' GTOL form without it."""
+    from diffudf_tpu_torch.autodiff.ops import (hess_from_packed, value_grad,
+                                                value_grad_hessian_packed)
+    from diffudf_tpu_torch.cli import train
+    from diffudf_tpu_torch.config import TrainConfig
+    from diffudf_tpu_torch.ops import kernel_io as kio
+    from diffudf_tpu_torch.ops import vg, vgh
+    from diffudf_tpu_torch.train.losses import (_grad_consistency_at, grad_consistency,
+                                                total_variation)
+
+    cfg = TrainConfig.from_json(run["cfg_path"])
+    spec = cfg.network.to_spec()
+    sampler, _, _ = train.build_sampler(cfg, device="cuda")  # the run's cache: no rebuild
+    pts, nrm, sdf = sampler.sample(torch.Generator(device="cuda").manual_seed(19))
+    n_on = sampler.sizes.on_surface
+    surf, surf_nrm = pts[:n_on].contiguous(), nrm[:n_on].contiguous()
+    off, off_sdf = (t[n_on:n_on + N_TV_ROWS].contiguous() for t in (pts, sdf))
+
+    def leaves(dtype):
+        return [{k: v.detach().to(dtype).clone().requires_grad_(True) for k, v in layer.items()}
+                for layer in run["params"]]
+
+    def tv(p, x, **kw):
+        return (total_variation(p, spec, x, off_sdf.to(x.dtype), cfg.alpha, **kw),)
+
+    # grad_consistency's draw, eps = 0.01 N(0, 1): the same eps every call
+    eps = 0.01 * torch.randn((len(surf), 1), generator=torch.Generator(device="cuda")
+                             .manual_seed(5), device="cuda")
+
+    def gc(p, x, **kw):
+        if x.dtype == torch.float32:
+            gen = torch.Generator(device="cuda").manual_seed(5)
+            return grad_consistency(p, spec, gen, x, surf_nrm, cfg.alpha, **kw)
+        # float64 at the float32 call's offsets
+        return _grad_consistency_at(p, spec, eps.to(x.dtype), x, surf_nrm.to(x.dtype),
+                                    cfg.alpha, **kw)
+
+    def kink_args(name, outs):
+        """Each row's arguments of the regulariser's |.| (the loss's
+        formulas): a row whose sign differs between two forwards takes the
+        other branch's gradient."""
+        if name == "total_variation":
+            _, g, h6 = outs
+            gnorm = torch.clamp(torch.linalg.norm(g, dim=-1), min=1e-12)
+            lhs = torch.linalg.norm(torch.einsum("nij,nj->ni", hess_from_packed(h6), g)
+                                    / gnorm[:, None], dim=-1)
+            u = off_sdf[:, 0]
+            t = torch.tanh(cfg.alpha * u)
+            return [lhs - 2.0 * cfg.alpha * torch.abs((1.0 - t * t) * (1.0 - u * t))]
+        f, g = outs
+        e = eps[:, 0]
+        tan = torch.tanh(cfg.alpha * torch.abs(e))
+        return [f - e * tan, torch.linalg.norm(g, dim=-1)
+                - torch.abs(tan + torch.abs(e) * cfg.alpha * (1.0 - tan * tan))]
+
+    def flipped(name, a, b):
+        """Rows whose |.| arguments differ in sign between outputs a and b."""
+        return torch.stack([torch.sign(u) != torch.sign(v) for u, v in
+                            zip(kink_args(name, a), kink_args(name, b))]).any(dim=0)
+
+    out = {}
+    for name, fn, x, key, (k_fwd, k_bwd), (fwd, bwd), taylor, cols, gtol, terms in (
+            ("total_variation", tv, off, "vgh_fn", ("K1", "K2"),
+             (vgh.vgh_reference, vgh.vgh_bwd_reference), value_grad_hessian_packed, 16,
+             GTOL["K2"], (("tv", "h6"),)),
+            ("grad_consistency", gc, surf, "vg_fn", ("K3a", "K3b"),
+             (vg.vg_reference, vg.vg_bwd_reference), value_grad, 8, GTOL["K3b"],
+             (("direction", "g"), ("value", "f"), ("grad_norm", "g")))):
+        kernel_fwd, kernel_bwd = ((vgh.vgh, vgh.vgh_bwd) if k_fwd == "K1"
+                                  else (vg.vg, vg.vg_bwd))
+        plain = {key: lambda p, s, y, f=fwd, b=bwd, c=cols: PlainOp.apply(
+            f, b, c, s, y, *kio.param_leaves(p))}
+
+        def run_once(dtype=torch.float32, **kw):
+            p = leaves(dtype)
+            flat = [t for layer in p for t in (layer["w"], layer["b"])]
+            vals = fn(p, x.to(dtype), **kw)
+            grads = torch.autograd.grad(sum(vals), flat, allow_unused=True)
+            return ([float(v.detach()) for v in vals],
+                    torch.cat([(torch.zeros_like(t) if g is None else g).reshape(-1)
+                               for t, g in zip(flat, grads)]))
+
+        zero_counts()
+        got = run_once()
+        torch.cuda.synchronize()
+        launches = read_counts()
+        want, exact = run_once(**plain), run_once(torch.float64, **plain)
+        want_launches = {k: int(k in (k_fwd, k_bwd)) for k in launches}
+        if launches != want_launches:
+            failed.append(f"{name} launched {launches}, not {want_launches}")
+        worst_term = max(abs(g - w) / (TOL[t] + RTOL * abs(w))
+                         for g, w, (_, t) in zip(got[0], want[0], terms))
+        print(f"[leftovers] {name}: through the kernels "
+              f"{dict(zip((t for t, _ in terms), got[0]))}, plain versions {want[0]}, float64 "
+              f"{exact[0]}; worst term err/limit {worst_term:.3f}; launches {launches}")
+        if not worst_term <= 1:
+            failed.append(f"{name}: a term through the kernels is outside TOL + RTOL |plain|")
+        mx, rms = witness(f"{name} gradient", got[1], want[1], exact[1].double(), failed,
+                          "[leftovers]")
+        limit = gtol * max(float(want[1].abs().max()), 1.0) + RTOL * want[1].abs()
+        g_err = float(((got[1] - want[1]).abs() / limit).max())
+        _, by_taylor = run_once(**{key: taylor})
+        t_err = float(((by_taylor - want[1]).abs() / limit).max())
+        print(f"[leftovers] {name} gradient: max |kernels - plain| "
+              f"{float((got[1] - want[1]).abs().max()):.3e}, worst err/limit in the GTOL "
+              f"form {g_err:.3f}; the plain Taylor-mode path against the plain versions "
+              f"{t_err:.3f} (both printed, not gated)")
+
+        # phase 8 on this regulariser's own rows and cotangents
+        def capture(f):
+            """-> (a vgh_fn/vg_fn that keeps its rows and outputs, what it keeps)."""
+            seen = {}
+
+            def fn_(p, s, y):
+                seen["x"] = y.detach().contiguous()
+                seen["outs"] = [t.detach().contiguous().requires_grad_(True)
+                                for t in f(p, s, seen["x"])]
+                return tuple(seen["outs"])
+            return fn_, seen
+
+        p32 = [{k: v.detach() for k, v in layer.items()} for layer in run["params"]]
+
+        def cotangents(f):
+            """-> (rows, the forward f's outputs, the loss's packed cotangent)."""
+            cap, seen = capture(f)
+            vals = fn(p32, x, **{key: cap})
+            c = [torch.zeros_like(o) if c is None else c for o, c in zip(
+                seen["outs"], torch.autograd.grad(sum(vals), seen["outs"], allow_unused=True))]
+            c = torch.cat([c[0][:, None]] + c[1:], dim=1)
+            c = torch.cat([c, c.new_zeros((len(c), cols - c.shape[1]))], dim=1).contiguous()
+            return seen["x"], [o.detach() for o in seen["outs"]], c
+
+        xs, p_outs, cot = cotangents(fwd)
+        _, k_outs, k_cot = cotangents(kernel_fwd)
+        _, t_outs, _ = cotangents(taylor)
+
+        def flat(grads):
+            return torch.cat([t[k].reshape(-1) for t in grads for k in ("w", "b")])
+
+        # each term's gradient on its own, kernels against the plain versions
+        def by_term(**kw):
+            p = leaves(torch.float32)
+            flat_p = [t for layer in p for t in (layer["w"], layer["b"])]
+            return [torch.cat([(torch.zeros_like(t) if g is None else g).reshape(-1)
+                               for t, g in zip(flat_p, torch.autograd.grad(
+                                   v, flat_p, allow_unused=True, retain_graph=True))])
+                    for v in fn(p, x, **kw)]
+
+        term_err = {t: float(((a - b).abs() / (gtol * max(float(b.abs().max()), 1.0)
+                                                + RTOL * b.abs())).max())
+                    for (t, _), a, b in zip(terms, by_term(), by_term(**plain))}
+
+        # the gradient gap with some rows left out of both paths
+        gap = flat(kernel_bwd(p32, spec, xs, k_cot)) - flat(bwd(p32, spec, xs, cot))
+
+        def without(rows):
+            """-> (the kernels' GTOL form without ``rows``, their share of
+            the largest and of the L2 gradient gap)."""
+            keep = (~rows).to(cot.dtype)[:, None]
+            rest = (flat(kernel_bwd(p32, spec, xs, (k_cot * keep).contiguous()))
+                    - flat(bwd(p32, spec, xs, (cot * keep).contiguous())))
+            return (float((rest.abs() / limit).max()),
+                    float((gap - rest).abs().max() / gap.abs().max().clamp(min=1e-30)),
+                    float(torch.linalg.norm(gap - rest) / torch.linalg.norm(gap).clamp(min=1e-30)))
+
+        flips = flipped(name, k_outs, p_outs)
+        t_flips = int(flipped(name, t_outs, p_outs).sum())
+        kinks = without(flips)
+        gnorm = torch.linalg.norm(p_outs[1], dim=-1)
+        small = gnorm <= torch.quantile(gnorm, 0.01)
+        flat_g = without(small)
+        print(f"[leftovers] {name} kinks: {int(flips.sum())} of {len(xs)} rows on the other "
+              f"side of a |.| kink in the kernels' forward than in the plain versions' "
+              f"({t_flips} in the Taylor-mode path's); without them the kernels' gradient "
+              f"err/limit in the GTOL form is {kinks[0]:.3f}; those rows carry "
+              f"{kinks[1]:.3f} of the largest and {kinks[2]:.3f} of the L2 gradient gap")
+        print(f"[leftovers] {name} by term, the kernels' gradient err/limit in the GTOL form: "
+              f"{json.dumps(term_err)}; the {int(small.sum())} rows of smallest |grad f| "
+              f"(1%, up to {float(gnorm[small].max()):.3e}; median {float(gnorm.median()):.3e}) "
+              f"carry {flat_g[1]:.3f} of the largest and {flat_g[2]:.3f} of the L2 gradient "
+              f"gap, and without them the GTOL form is {flat_g[0]:.3f}")
+        fwd_worst = max(float(((a - b).abs() / (TOL[k] + RTOL * b.abs())).max())
+                        for k, a, b in zip(("f", "g", "h6"), k_outs, p_outs))
+        p64 = [{k: v.double() for k, v in layer.items()} for layer in p32]
+        k_g, p_g = kernel_bwd(p32, spec, xs, cot), bwd(p32, spec, xs, cot)
+        e_g = bwd(p64, spec, xs.double(), cot.double())
+        bwd_worst = max(float(((g[k] - w[k]).abs() / (gtol * max(float(w[k].abs().max()), 1.0)
+                                                       + RTOL * w[k].abs())).max())
+                        for g, w in zip(k_g, p_g) for k in ("w", "b"))
+        witness(f"{name} {k_bwd} on its cotangents", *(
+            torch.cat([t[k].reshape(-1).double() for t in r for k in ("w", "b")])
+            for r in (k_g, p_g, e_g)), failed, "[leftovers]")
+        print(f"[leftovers] {name}: {k_fwd} vs its plain version on the {len(xs)} rows, worst "
+              f"err/limit {fwd_worst:.3f}; {k_bwd} on the regulariser's cotangents, worst "
+              f"err/limit {bwd_worst:.3f} (GTOL {gtol})")
+        if not (fwd_worst <= 1 and bwd_worst <= 1):
+            failed.append(f"{name}: {k_fwd} or {k_bwd} outside its phase 8 limit")
+
+        ms = cuda_ms(lambda: run_once(), 10)
+        plain_ms = cuda_ms(lambda: run_once(**plain), 5)
+        print(f"[leftovers] {name} with its backward at {len(x)} rows: {ms:.3f} ms on "
+              f"{k_fwd} + {k_bwd} (median of 10), {plain_ms:.3f} ms on the plain versions")
+        out[name] = {"launches": launches, "terms": got[0], "plain_terms": want[0],
+                     "worst_term": worst_term, "grad_f64_max": mx, "grad_f64_rms": rms,
+                     "grad_gtol_form": g_err, "taylor_gtol_form": t_err,
+                     "kink_rows": int(flips.sum()), "taylor_kink_rows": t_flips,
+                     "gtol_form_off_kinks": kinks[0], "kink_share_max": kinks[1],
+                     "kink_share_l2": kinks[2], "term_gtol_form": term_err,
+                     "gtol_form_off_small_grad": flat_g[0], "small_grad_share_max": flat_g[1],
+                     "small_grad_share_l2": flat_g[2], "fwd_worst": fwd_worst,
+                     "bwd_worst": bwd_worst,
+                     "ms": ms, "plain_ms": plain_ms}
+    return out
+
+
+def winding(failed):
+    """winding_number and signed_mesh_distance of the raw demo torus at
+    N_WINDING queries on the card; -> their times and sign counts."""
+    from diffudf_tpu_torch.data import (load_mesh, point_triangle_distance,
+                                        signed_mesh_distance, winding_number)
+    from diffudf_tpu_torch.data.mesh_distance import triangles_from_mesh
+
+    m = load_mesh(os.path.join(REPO, "data", "demo", "torus.obj"))
+    tris = triangles_from_mesh(m.vertices, m.faces, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    lo = torch.tensor([-0.9, -0.9, -0.35], device="cuda")
+    q = lo - 2 * lo * torch.rand((N_WINDING, 3), generator=gen, device="cuda")
+    signed_mesh_distance(q[:512], tris)  # the first launches of each operation
+    w_ms, w = timed_once(lambda: winding_number(q, tris))
+    d_ms, d = timed_once(lambda: point_triangle_distance(q, tris))
+    s_ms, sd = timed_once(lambda: signed_mesh_distance(q, tris))
+    rho = torch.hypot(q[:, 0], q[:, 1]) - TORUS_R
+    tube = torch.sqrt(rho * rho + q[:, 2] * q[:, 2])
+    inside, band = tube < TORUS_TUBE, (tube - TORUS_TUBE).abs() <= TORUS_BAND
+    wrong = int((((sd < 0) != inside) & ~band).sum())
+    same_bits = torch.equal(sd.abs(), d)
+    off = ~band
+    w_err = float((w[off] - inside[off].float()).abs().max())
+    print(f"[leftovers] {len(q)} queries x {len(tris)} triangles ({len(q) * len(tris):.3e} "
+          f"pairs): winding_number {w_ms:.3f} ms, point_triangle_distance {d_ms:.3f} ms, "
+          f"signed_mesh_distance {s_ms:.3f} ms; {int(inside.sum())} inside, "
+          f"{int(band.sum())} in the {TORUS_BAND} band; sign wrong outside it {wrong}; "
+          f"|distance| equal to the brute sweep's bits {same_bits}; max |w - inside| off the "
+          f"band {w_err:.3e}")
+    if wrong or not same_bits or not bool(torch.isfinite(sd).all()):
+        failed.append(f"signed_mesh_distance: {wrong} signs wrong off the band, |d| the brute "
+                      f"sweep's bits {same_bits}")
+    return {"winding_ms": w_ms, "distance_ms": d_ms, "signed_ms": s_ms, "wrong": wrong,
+            "inside": int(inside.sum()), "band": int(band.sum()), "w_err": w_err}
+
+
+def relaxation(sphere_path, slice_stats):
+    """The MeshUDF "mst" extraction of phase 5's sphere grid with its sign
+    relaxation on the host, then on the card (``DIFFUDF_RELAX_ON_DEVICE=1``):
+    each relaxation's seconds (the card's with the upload and the
+    read-back; its loop and upload alone beside them), the signs that
+    differ, both meshes' Chamfer-L1."""
+    from diffudf_tpu_torch.data.mesh_io import Mesh
+    from diffudf_tpu_torch.extract import meshudf
+    from diffudf_tpu_torch.fields.siren import SirenSpec
+    from diffudf_tpu_torch.grid.lattice import extract_fields_sparse
+    from diffudf_tpu_torch.train.checkpoint import load_params
+
+    udf, dirs = extract_fields_sparse(load_params(sphere_path, device="cuda"),
+                                      SirenSpec(hidden=HIDDEN), N_GRID, "tanh", ALPHA)
+    relax, calls = meshudf._relax, []
+
+    def timed_relax(*a):  # the extraction's own relaxation, timed in place
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = relax(*a)  # the card's signs are read back before it returns
+        calls.append((time.perf_counter() - t0, r, a))
+        return r
+
+    meshes, secs = [], []
+    meshudf._relax = timed_relax
+    try:
+        for ctx, device in ((contextlib.nullcontext(), None), (relax_on_device(), "cuda")):
+            with ctx:
+                t0 = time.perf_counter()
+                v, f = meshudf.extract_mesh_meshudf(udf, dirs, signing="mst", device=device)
+                secs.append(time.perf_counter() - t0)
+            meshes.append(Mesh(v, f))
+    finally:
+        meshudf._relax = relax
+    (host_s, (s_host, _), (signs, weights, participate, iters, _)), (dev_s, (s_dev, _), _) = calls
+    t0 = time.perf_counter()
+    s_t = torch.from_numpy(signs.astype(np.float32) * participate).to("cuda")
+    w_t = [torch.from_numpy(w).to("cuda") for w in weights]
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t0
+    loop_ms, _ = timed_once(lambda: meshudf._relax_device(s_t, w_t, iters))
+    differ = int((s_host != s_dev).sum())
+    print(f"[leftovers] relaxation of the N={N_GRID} sphere grid ({int(participate.sum())} "
+          f"vertices in the band): host loop {host_s:.3f} s, on the card with the upload and "
+          f"the read-back {dev_s:.3f} s (upload {upload_s:.3f} s, {iters} iterations "
+          f"{loop_ms:.3f} ms); signs that differ {differ}; phase 5's MeshUDF host seconds "
+          f"{slice_stats['mu_s']:.3f} (its 'bfs' signing runs no relaxation)")
+    print(f"[leftovers] MeshUDF 'mst' extraction: host relaxation {secs[0]:.3f} s, "
+          f"{len(meshes[0].faces)} faces; relaxation on the card {secs[1]:.3f} s, "
+          f"{len(meshes[1].faces)} faces")
+    chamfer = sphere_chamfer(meshes, "[leftovers]", names=("MU host relax", "MU device relax"))
+    return {"host_s": host_s, "device_s": dev_s, "upload_s": upload_s, "loop_ms": loop_ms,
+            "differ": differ, "mesh_s": secs, "chamfer": chamfer}
+
+
+@phase("leftovers")
+def leftovers_phase(run, sphere_path, slice_stats):
+    """The regularisers on the kernels, the winding number and signed mesh
+    distance, and the sign relaxation both ways."""
+    failed = []
+    out = {"regularisers": regularisers(run, failed), "winding": winding(failed)}
+    out["relaxation"] = relaxation(sphere_path, slice_stats)
+    if failed:
+        raise AssertionError("[leftovers] " + "; ".join(failed))
+    return out
+
+
 KERNELS = {
     "K1": ("vgh", "diffudf_tpu_torch/csrc/vgh.cu", "diffudf_tpu/ops/pallas_vgh.py:55 (_vgh_kernel)"),
     "K2": ("vgh_bwd", "diffudf_tpu_torch/csrc/vgh_bwd.cu",
@@ -2069,6 +2491,12 @@ def main():
         enh = enhanced_phase(tmp, run, stats)
         dp = dp_train_phase(tmp, run)
         serving = sharded_serving_phase(tmp, model_path, run, render, pc)
+        left = leftovers_phase(run, model_path, stats)
+    aux = {k: left["regularisers"][p]["launches"][k]
+           for p, ks in (("total_variation", ("K1", "K2")), ("grad_consistency", ("K3a", "K3b")))
+           for k in ks}
+    aux_path = {"K1": "total_variation", "K2": "total_variation", "K3a": "grad_consistency",
+                "K3b": "grad_consistency"}
     sharded = serving["launches"]
     rows = []
     for key, (name, source, replaces) in KERNELS.items():
@@ -2086,7 +2514,8 @@ def main():
                                          "generate_pc": pc["launches"]["K1"],
                                          "generate_mc_enhanced": enh["launches"]["K1"],
                                          **dp_by_path(dp, "K1"),
-                                         **{p: v["K1"] for p, v in sharded.items()}},
+                                         **{p: v["K1"] for p, v in sharded.items()},
+                                         "total_variation": aux["K1"]},
                        max_abs_err=max(t["max_err"].values()), max_err=t["max_err"],
                        **{k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                             "tensor_bound_ms", "fp32_bound_ms", "bytes_moved",
@@ -2122,7 +2551,7 @@ def main():
             row["launches"] = run["launches"][key]
             row["launches_by_path"] = {"train": run["launches"][key],
                                        "train_mesh": mesh_run["launches"][key],
-                                       **dp_by_path(dp, key)}
+                                       **dp_by_path(dp, key), aux_path[key]: aux[key]}
             row.update(tk[key])
             if key == "K3a":
                 row["launches_by_path"].update(
@@ -2140,6 +2569,8 @@ def main():
           f"{json.dumps(gt)}; the point cloud and the enhanced extraction: "
           f"{json.dumps({k: v for k, v in pc.items() if k not in ('times', 'cloud')})}, "
           f"{json.dumps(enh)}")
+    print(f"[total] phase 19, the regularisers, winding number and relaxation: "
+          f"{json.dumps(left)}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

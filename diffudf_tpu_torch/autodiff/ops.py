@@ -82,43 +82,80 @@ def _check_scalar(spec: SirenSpec):
         raise ValueError("gradient ops require a scalar field (n_out == 1)")
 
 
-def value_grad(params, spec: SirenSpec, x: torch.Tensor):
-    """Fused (f, ∇f): (N, 3) -> ((N,), (N, 3))."""
+def value_grad(params, spec: SirenSpec, x: torch.Tensor, deriv_dtype=None):
+    """Fused (f, ∇f): (N, 3) -> ((N,), (N, 3)).
+
+    ``deriv_dtype=torch.bfloat16`` carries the Jacobian and the weights it
+    meets in bf16, as the JAX package's ``deriv_dtype`` does; the value
+    path stays in ``x``'s dtype and the outputs are in it too.  ``None``
+    carries everything in ``x``'s dtype."""
     _check_scalar(spec)
+    dd = x.dtype if deriv_dtype is None else deriv_dtype
     freqs = spec.freqs
     a = x
-    jac = torch.eye(3, dtype=x.dtype, device=x.device).expand(x.shape[0], 3, 3)
+    jac = torch.eye(3, dtype=dd, device=x.device).expand(x.shape[0], 3, 3)
     for i, layer in enumerate(params[:-1]):
         w = layer["w"]
         z = a @ w + layer["b"]
-        jz = jac @ w  # (N, 3, h)
+        jz = jac @ w.to(dd)  # (N, 3, h)
         a, d1, _ = _act(spec, freqs[i], z)
-        jac = d1[:, None, :] * jz
+        jac = d1.to(dd)[:, None, :] * jz
     last = params[-1]
     f = (a @ last["w"] + last["b"])[..., 0]
-    g = (jac @ last["w"])[..., 0]
+    g = (jac @ last["w"].to(dd))[..., 0].to(x.dtype)
     return f, g
 
 
-def value_grad_hessian_packed(params, spec: SirenSpec, x: torch.Tensor):
-    """Fused (f, ∇f, packed H): (N, 3) -> ((N,), (N, 3), (N, 6))."""
+def value_grad_hessian(params, spec: SirenSpec, x: torch.Tensor, deriv_dtype=None):
+    """Fused (f, ∇f, H): (N, 3) -> ((N,), (N, 3), (N, 3, 3))."""
+    f, g, h6 = value_grad_hessian_packed(params, spec, x, deriv_dtype)
+    return f, g, hess_from_packed(h6)
+
+
+def value_grad_hessian_packed(params, spec: SirenSpec, x: torch.Tensor, deriv_dtype=None):
+    """Fused (f, ∇f, packed H): (N, 3) -> ((N,), (N, 3), (N, 6)).
+
+    ``deriv_dtype``: the dtype of the J and H carries and of the weights
+    they meet (see :func:`value_grad`)."""
     _check_scalar(spec)
+    dd = x.dtype if deriv_dtype is None else deriv_dtype
     freqs = spec.freqs
     n = x.shape[0]
     a = x
-    jac = torch.eye(3, dtype=x.dtype, device=x.device).expand(n, 3, 3)
-    hes = torch.zeros((n, 6, 3), dtype=x.dtype, device=x.device)
+    jac = torch.eye(3, dtype=dd, device=x.device).expand(n, 3, 3)
+    hes = torch.zeros((n, 6, 3), dtype=dd, device=x.device)
     for i, layer in enumerate(params[:-1]):
         w = layer["w"]
+        wd = w.to(dd)
         z = a @ w + layer["b"]
-        jz = jac @ w  # (N, 3, h)
-        hz = hes @ w  # (N, 6, h)
+        jz = jac @ wd  # (N, 3, h)
+        hz = hes @ wd  # (N, 6, h)
         a, d1, d2 = _act(spec, freqs[i], z)
         outer = jz[:, _TRI_I, :] * jz[:, _TRI_J, :]  # (N, 6, h)
+        d1, d2 = d1.to(dd), d2.to(dd)
         jac = d1[:, None, :] * jz
         hes = d1[:, None, :] * hz + d2[:, None, :] * outer
     last = params[-1]
     f = (a @ last["w"] + last["b"])[..., 0]
-    g = (jac @ last["w"])[..., 0]
-    h6 = (hes @ last["w"])[..., 0]
+    wl = last["w"].to(dd)
+    g = (jac @ wl)[..., 0].to(x.dtype)
+    h6 = (hes @ wl)[..., 0].to(x.dtype)
     return f, g, h6
+
+
+# --- autodiff oracle (used in tests) -----------------------------------------
+
+
+def value_grad_hessian_ad(params, spec: SirenSpec, x: torch.Tensor):
+    """Same contract as :func:`value_grad_hessian`, by ``torch.func``:
+    ``vmap(grad)`` for ∇f and ``vmap(jacfwd(grad))`` for H of the plain
+    forward pass, the independent oracle of the Taylor-mode functions."""
+    from torch.func import grad, jacfwd, vmap
+
+    def f_scalar(pt):
+        return siren_apply(params, spec, pt[None, :])[0, 0]
+
+    f = siren_apply(params, spec, x)[..., 0]
+    g = vmap(grad(f_scalar))(x)
+    h = vmap(jacfwd(grad(f_scalar)))(x)
+    return f, g, h

@@ -144,7 +144,8 @@ def run_mc(params, spec, gt_mode, N, output_path, alpha=None, algorithm="meshudf
     def _mu():
         t0 = time.perf_counter()
         verts, faces = _mu_postprocessed(udf, dirs, triangulator,
-                                         knobs["mu_face_prune_voxels"], knobs["mu_taubin"])
+                                         knobs["mu_face_prune_voxels"], knobs["mu_taubin"],
+                                         device=params[0]["w"].device)
         m = Mesh(_refine(verts, faces, "mu"), faces)
         stats["mu_s"] = time.perf_counter() - t0
         stats["mu_faces"] = len(faces)
@@ -193,7 +194,7 @@ def run_mc(params, spec, gt_mode, N, output_path, alpha=None, algorithm="meshudf
 
 
 def _mu_postprocessed(udf, dirs, triangulator, mu_face_prune_voxels=1.0,
-                      mu_taubin=3):
+                      mu_taubin=3, device=None):
     """MeshUDF extraction + the CLI cleanup knobs.
 
     ``extract_mesh_meshudf`` already performs the reference's own cleanup
@@ -207,10 +208,13 @@ def _mu_postprocessed(udf, dirs, triangulator, mu_face_prune_voxels=1.0,
         MC-staircase normal noise that put MU's NC *behind* CAP's (the
         reference publishes MU ahead: NC 0.019/0.020 vs 0.024/0.025,
         BASELINE.md — restored by this knob).
+
+    ``device``: the grid's device, where the sign relaxation may run
+    (``extract.meshudf.majority_relaxation``).
     """
     verts, faces = extract_mesh_meshudf(
         udf, dirs, triangulator=triangulator or DEFAULT_TRIANGULATOR,
-        max_face_dist_voxels=mu_face_prune_voxels,
+        max_face_dist_voxels=mu_face_prune_voxels, device=device,
     )
     if mu_taubin:
         from ..extract.postprocess import taubin_smooth

@@ -1,5 +1,5 @@
 """Ground-truth distance oracles: the torch copy of
-``diffudf_tpu/data/mesh_distance.py`` without the winding number.
+``diffudf_tpu/data/mesh_distance.py``.
 
 Training's oracles.  Point-cloud input: the one-time build is host numpy +
 scipy ``cKDTree`` (for each cell of a g³ lattice over the query domain, the
@@ -20,12 +20,15 @@ distance, which on a CUDA device is one launch of the kernel K5
 (:mod:`..ops.min_distance`; the JAX package keeps its Pallas twin off this
 function only for a TPU compiler limit); :func:`point_triangle_distance`;
 and :func:`point_triangle_distance_pruned`, which tests only the k triangles
-of best lower bound from a float32 centroid product.
+of best lower bound from a float32 centroid product.  The sign of a mesh:
+:func:`winding_number` and :func:`signed_mesh_distance`, brute sweeps over
+query tiles as in the JAX package.
 """
 
 from __future__ import annotations
 
 import contextlib
+import math
 
 import numpy as np
 import torch
@@ -212,6 +215,32 @@ def point_triangle_distance(queries: torch.Tensor, tri_verts: torch.Tensor, tile
             best = d2 if best is None else torch.minimum(best, d2)
         out.append(torch.sqrt(torch.clamp(best, min=0.0)))
     return torch.cat(out) if out else queries.new_zeros(0)
+
+
+def winding_number(queries: torch.Tensor, tri_verts: torch.Tensor, tile: int = 256):
+    """Generalised winding number of each query with respect to the mesh,
+    queries (Q, 3), tri_verts (T, 3, 3) -> (Q,) on the queries' device:
+    about 1 inside and 0 outside a watertight mesh.  The solid angle of
+    each triangle (van Oosterom-Strackee), summed over every triangle,
+    ``tile`` queries at a time."""
+    a, b, c = (tri_verts[:, k][None] for k in range(3))
+    out = []
+    for q in torch.split(queries, tile):
+        pa, pb, pc = a - q[:, None, :], b - q[:, None, :], c - q[:, None, :]
+        la, lb, lc = (torch.linalg.norm(p, dim=-1) for p in (pa, pb, pc))
+        num = torch.sum(pa * torch.linalg.cross(pb, pc, dim=-1), dim=-1)
+        den = (la * lb * lc + torch.sum(pa * pb, dim=-1) * lc
+               + torch.sum(pb * pc, dim=-1) * la + torch.sum(pc * pa, dim=-1) * lb)
+        out.append(torch.sum(2.0 * torch.atan2(num, den), dim=1) / (4.0 * math.pi))
+    return torch.cat(out) if out else queries.new_zeros(0)
+
+
+def signed_mesh_distance(queries: torch.Tensor, tri_verts: torch.Tensor, tile: int = 256):
+    """Signed distance to the mesh: :func:`point_triangle_distance`,
+    negative where :func:`winding_number` > 0.5 (inside), positive
+    outside; Open3D's ``compute_signed_distance`` (``src/dataset.py:35``)."""
+    d = point_triangle_distance(queries, tri_verts, tile)
+    return torch.where(winding_number(queries, tri_verts, tile) > 0.5, -d, d)
 
 
 # The bootstrap sweep of mesh-mode training (before the candidate grid

@@ -28,7 +28,10 @@ avg(cell corner udf) < 1.05·voxel and max ≤ 1.75·voxel.
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
+import torch
 
 from ..native import udf_mc as native
 from .cap import _corner_views
@@ -107,7 +110,7 @@ def edge_relations(udf: np.ndarray, dirs: np.ndarray, participate: np.ndarray,
 
 def majority_relaxation(signs: np.ndarray, udf: np.ndarray, dirs: np.ndarray,
                         participate: np.ndarray, voxel: float,
-                        iters: int = 30):
+                        iters: int = 30, device=None):
     """Iteratively re-vote each vertex's sign from its 6 neighbours.
 
     A spanning tree propagates one wrong relation into a whole wrong
@@ -116,42 +119,82 @@ def majority_relaxation(signs: np.ndarray, udf: np.ndarray, dirs: np.ndarray,
     revisit-unsure BFS, ``_marching_cubes_lewiner_cy.pyx:1243-1375``).
     Fully vectorised: each iteration is six shifted multiply-adds.
 
+    With ``DIFFUDF_RELAX_ON_DEVICE=1`` and a CUDA ``device`` the loop runs
+    there (:func:`_relax_device`: all ``iters`` iterations, the grid
+    uploaded and the result read back), as the JAX package's device path
+    does; an error there raises.  Otherwise the host loop runs, and stops
+    early once at most one vertex in 10,000 flips.
+
     Returns (signs, confidence): confidence is the magnitude of the final
     weighted neighbourhood vote per vertex — low where the sign assignment
     is unreliable (parity seams, noisy fringe).
     """
-    rels = edge_relations(udf, dirs, participate, voxel)
-    weights = []
-    for axis, (mask, rel, conf) in enumerate(rels):
-        weights.append((conf * rel * mask).astype(np.float32))
+    return _relax(signs, _edge_weights(udf, dirs, participate, voxel), participate, iters,
+                  device)
+
+
+def _edge_weights(udf: np.ndarray, dirs: np.ndarray, participate: np.ndarray, voxel: float):
+    """Each axis family's (rel, conf) of :func:`edge_relations` packed as one
+    signed weight slab, rel · conf on edges whose ends both participate."""
+    return [(rel * conf * mask).astype(np.float32)
+            for mask, rel, conf in edge_relations(udf, dirs, participate, voxel)]
+
+
+def _relax(signs, weights, participate, iters, device):
+    """:func:`majority_relaxation` on the packed edge weights."""
     s = signs.astype(np.float32) * participate
-    n_part = max(int(participate.sum()), 1)
-    acc = np.zeros_like(s)
-    for _ in range(iters):
+    on_device = (bool(int(os.environ.get("DIFFUDF_RELAX_ON_DEVICE", "0")))
+                 and device is not None and torch.device(device).type == "cuda")
+    if on_device:
+        st, acc = _relax_device(torch.from_numpy(s).to(device),
+                                [torch.from_numpy(w).to(device) for w in weights], iters)
+        s, acc = st.cpu().numpy(), acc.cpu().numpy()
+    else:
+        n_part = max(int(participate.sum()), 1)
         acc = np.zeros_like(s)
-        for axis, w in enumerate(weights):
-            sl_a = [slice(None)] * 3
-            sl_b = [slice(None)] * 3
-            sl_a[axis] = slice(0, -1)
-            sl_b[axis] = slice(1, None)
-            sl_a, sl_b = tuple(sl_a), tuple(sl_b)
-            acc[sl_a] += w * s[sl_b]
-            acc[sl_b] += w * s[sl_a]
-        new = np.where(acc != 0, np.sign(acc), s)
-        flips = int((new != s).sum())
-        s = new
-        if flips <= n_part // 10000:
-            break
+        for _ in range(iters):
+            acc = np.zeros_like(s)
+            for axis, w in enumerate(weights):
+                sl_a = [slice(None)] * 3
+                sl_b = [slice(None)] * 3
+                sl_a[axis] = slice(0, -1)
+                sl_b[axis] = slice(1, None)
+                sl_a, sl_b = tuple(sl_a), tuple(sl_b)
+                acc[sl_a] += w * s[sl_b]
+                acc[sl_b] += w * s[sl_a]
+            new = np.where(acc != 0, np.sign(acc), s)
+            flips = int((new != s).sum())
+            s = new
+            if flips <= n_part // 10000:
+                break
     out = signs.copy()
     nz = (s != 0) & participate
     out[nz] = s[nz].astype(np.int8)
     return out, np.abs(acc)
 
 
+def _relax_device(s: torch.Tensor, weights, iters: int):
+    """The relaxation loop on ``s``'s device, the JAX ``_relax_device``:
+    ``iters`` iterations of the host loop's six shifted multiply-adds, in
+    its order, with no early stop.  -> (signs, last vote), float32."""
+    wx, wy, wz = weights
+    acc = torch.zeros_like(s)
+    for _ in range(iters):
+        acc = torch.zeros_like(s)
+        acc[:-1] += wx * s[1:]
+        acc[1:] += wx * s[:-1]
+        acc[:, :-1] += wy * s[:, 1:]
+        acc[:, 1:] += wy * s[:, :-1]
+        acc[:, :, :-1] += wz * s[:, :, 1:]
+        acc[:, :, 1:] += wz * s[:, :, :-1]
+        s = torch.where(acc != 0, torch.sign(acc), s)
+    return s, acc
+
+
 def compute_signs(udf: np.ndarray, dirs: np.ndarray, voxel_size: float,
                   max_dist_voxels: float = 2.0,
                   relax_iters: int = 30,
-                  return_confidence: bool = False):
+                  return_confidence: bool = False, device=None):
     """Pseudo-sign (+1/−1) per grid vertex.
 
     Maximum-confidence spanning-tree propagation (native C++) over the
@@ -171,18 +214,12 @@ def compute_signs(udf: np.ndarray, dirs: np.ndarray, voxel_size: float,
     udf = np.ascontiguousarray(udf, np.float32)
     dirs = np.ascontiguousarray(dirs, np.float32)
     participate = udf < max_dist_voxels * voxel_size
-    # pack each axis family's (rel, conf) as one signed weight slab
-    weights = []
-    for axis, (mask, rel, conf) in enumerate(
-        edge_relations(udf, dirs, participate, voxel_size)
-    ):
-        weights.append((rel * conf * mask).astype(np.float32))
+    weights = _edge_weights(udf, dirs, participate, voxel_size)
     signs = native.sign_voting(udf, participate, *weights)
     conf = None
     if relax_iters:
-        signs, conf = majority_relaxation(
-            signs, udf, dirs, participate, voxel_size, iters=relax_iters
-        )
+        # majority_relaxation on the same weights
+        signs, conf = _relax(signs, weights, participate, relax_iters, device)
     if return_confidence:
         return signs, conf, participate
     return signs
@@ -225,6 +262,7 @@ def extract_mesh_meshudf(
     max_face_dist_voxels: float | None = None,
     triangulator: str = DEFAULT_TRIANGULATOR,
     signing: str = "bfs",
+    device=None,
 ):
     """-> (verts (V,3) in [-1,1]³, faces (F,3)), cleaned like the reference
     (``render_mc.py:103-199``: cleanup loop + optional border smoothing).
@@ -237,6 +275,10 @@ def extract_mesh_meshudf(
         borders (``_marching_cubes_lewiner_cy.pyx:1584-1750``);
       * ``"mst"`` — maximum-confidence spanning-tree propagation + majority
         relaxation with confidence cell gating.
+
+    ``device``: the grid's device; the ``"mst"`` relaxation runs there when
+    ``DIFFUDF_RELAX_ON_DEVICE=1`` and it is a GPU
+    (:func:`majority_relaxation`).
 
     ``max_face_dist_voxels``: drop triangles whose centroid UDF exceeds this
     many voxels.  Low-confidence votes far from the surface can fabricate
@@ -278,7 +320,7 @@ def extract_mesh_meshudf(
                             max_face_dist_voxels)
     elif signing == "mst":
         signs, conf, participate = compute_signs(udf, dirs, voxel,
-                                                 return_confidence=True)
+                                                 return_confidence=True, device=device)
         signed = udf * signs
 
         gates = gate_cells(udf, voxel, avg_thresh, max_thresh)

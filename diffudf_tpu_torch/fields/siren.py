@@ -100,6 +100,11 @@ def flat_size(spec: SirenSpec) -> int:
     return sum(a * b + b for a, b in zip(dims[:-1], dims[1:]))
 
 
+def param_count(params) -> int:
+    """Number of values in ``params`` (torch tensors or numpy arrays)."""
+    return sum(int(np.prod(p.shape)) for leaf in params for p in leaf.values())
+
+
 def flatten_params(params) -> torch.Tensor:
     """Params -> one flat tensor in the order of ``jax.flatten_util.
     ravel_pytree`` over the JAX layout: layer by layer, ``b`` then ``w``

@@ -67,6 +67,24 @@ def field_fns(spec: SirenSpec):
     return value_grad, value_grad_hessian_packed
 
 
+def autograd_ops(spec: SirenSpec):
+    """-> (vg_op, vgh_op), the losses' (f, ∇f) and (f, ∇f, packed H)
+    functions differentiable in the params (the Trainer's s1 loss, the
+    auxiliary regularisers).
+
+    For a net the kernels take (:func:`.kernel_io.kernel_spec_ok`) they are
+    :func:`.vg.vg_op` (K3a + K3b) and :func:`.vgh.vgh_op` (K1 + K2), which
+    run their plain versions on a CPU tensor; for every other net (None,
+    None): the caller's plain Taylor-mode path.
+    """
+    if kernel_spec_ok(spec):
+        from .vg import vg_op
+        from .vgh import vgh_op
+
+        return vg_op, vgh_op
+    return None, None
+
+
 def evaluate_field(
     params,
     spec: SirenSpec,

@@ -173,15 +173,16 @@ def pick_backend(devices) -> str:
 
 
 def init_group(rank: int, size: int, device, backend: str | None = None,
-               store_path: str | None = None) -> DataGroup:
+               store_path: str | None = None, timeout_s: float = TIMEOUT_S) -> DataGroup:
     """Join (or, at rank 0, start) the default process group; -> this
     rank's :class:`DataGroup`.  ``store_path`` names the ``FileStore``
-    file; without it the ``env://`` variables of a launcher apply."""
+    file; without it the ``env://`` variables of a launcher apply.  The
+    rendezvous and every collective raise after ``timeout_s`` seconds."""
     device = torch.device(device)
     if device.type == "cuda":
         torch.cuda.set_device(device)
     backend = backend or pick_backend([device])
-    timeout = datetime.timedelta(seconds=TIMEOUT_S)
+    timeout = datetime.timedelta(seconds=timeout_s)
     if store_path is not None:
         store = dist.FileStore(store_path, size)
         dist.init_process_group(backend, store=store, rank=rank, world_size=size,
@@ -196,13 +197,13 @@ def close_group():
         dist.destroy_process_group()
 
 
-def _rank_main(rank, size, store_path, device, backend, fn, args, threads):
+def _rank_main(rank, size, store_path, device, backend, fn, args, threads, timeout_s):
     """Ranks 1..n-1 of :func:`run_group`: join, run ``fn``, leave; a failure
     prints its traceback and exits with code 1, which rank 0 reports."""
     torch.set_num_threads(threads)
     code = 0
     try:
-        group = init_group(rank, size, device, backend, store_path)
+        group = init_group(rank, size, device, backend, store_path, timeout_s)
         fn(group, *args)
     except BaseException:  # noqa: BLE001  (reported through the exit code)
         traceback.print_exc()
@@ -229,7 +230,7 @@ def _failed(procs) -> list:
     return [(r, p.exitcode) for r, p in procs if p.exitcode not in (None, 0)]
 
 
-def _start_rank0(size, store_path, device, backend, procs) -> DataGroup:
+def _start_rank0(size, store_path, device, backend, procs, timeout_s) -> DataGroup:
     """Rank 0's rendezvous, on a helper thread, while this thread watches
     the other ranks: a rank that dies before it joins raises here at once
     instead of after the rendezvous timeout."""
@@ -237,7 +238,7 @@ def _start_rank0(size, store_path, device, backend, procs) -> DataGroup:
 
     def join():
         try:
-            out["group"] = init_group(0, size, device, backend, store_path)
+            out["group"] = init_group(0, size, device, backend, store_path, timeout_s)
         except Exception as e:  # noqa: BLE001  (re-raised below)
             out["error"] = e
 
@@ -283,7 +284,7 @@ def spread(fn, device, n: int = 0, **kwargs):
     return run_group(_spread_rank, n, (fn, kwargs), devices=group_devices(device, n))
 
 
-def run_group(fn, n: int, args=(), devices=None):
+def run_group(fn, n: int, args=(), devices=None, timeout_s: float = TIMEOUT_S):
     """Run ``fn(group, *args)`` on ``n`` ranks; -> rank 0's result.
 
     ``fn`` is a module-level function (the other ranks import it).  The
@@ -301,7 +302,10 @@ def run_group(fn, n: int, args=(), devices=None):
 
     Raises RuntimeError when a rank fails to start, fails or exits with an
     error, and when the group cannot have ``n`` ranks; nothing carries on
-    with fewer ranks than asked for.
+    with fewer ranks than asked for.  A rank that stops answering makes the
+    others' rendezvous or collective raise after ``timeout_s`` seconds, and
+    rank 0 waits at most that long (and at most ``JOIN_S``) for the others
+    to exit.
     """
     if n < 1:
         raise ValueError(f"run_group: n must be >= 1, got {n}")
@@ -315,7 +319,8 @@ def run_group(fn, n: int, args=(), devices=None):
         if dist.is_initialized():
             group = DataGroup(rank, world, torch.device(device), dist.get_backend())
         else:
-            group = init_group(rank, world, device, "nccl" if cuda else "gloo")
+            group = init_group(rank, world, device, "nccl" if cuda else "gloo",
+                               timeout_s=timeout_s)
         return fn(group, *args)
 
     if devices is None:
@@ -338,19 +343,19 @@ def run_group(fn, n: int, args=(), devices=None):
     ctx = multiprocessing.get_context("spawn")
     procs = [(r, ctx.Process(target=_rank_main, name=f"diffudf-rank{r}",
                              args=(r, n, store_path, devices[r], backend, fn, args,
-                                   torch.get_num_threads())))
+                                   torch.get_num_threads(), timeout_s)))
              for r in range(1, n)]
     ok = False
     try:
         for _, p in procs:
             p.start()
-        group = _start_rank0(n, store_path, devices[0], backend, procs)
+        group = _start_rank0(n, store_path, devices[0], backend, procs, timeout_s)
         try:
             result = fn(group, *args)
         finally:
             close_group()
         for _, p in procs:
-            p.join(JOIN_S)
+            p.join(min(JOIN_S, timeout_s))
         dead = _failed(procs) + [(r, "still running") for r, p in procs if p.is_alive()]
         if dead:
             raise RuntimeError(f"data-parallel group of {n}: rank(s) {dead} (rank, exit code) "

@@ -10,9 +10,9 @@ is drawn from a ``torch.Generator`` there, the loss terms, the best loss and
 the best params are device tensors, and the host reads the logs once per
 chunk.
 
-On a net the kernels take (``ops.kernel_io.kernel_spec_ok``: a
-uniform-width sine SIREN of width a multiple of 32, at most 256) the s1
-loss runs the fused ops: K1 + K2 (``ops.vgh.vgh_op``) on the on-surface
+On a net the kernels take (``ops.evaluate.autograd_ops``, by
+``ops.kernel_io.kernel_spec_ok``: a uniform-width sine SIREN of width a
+multiple of 32, at most 256) the s1 loss runs the fused ops: K1 + K2 (``ops.vgh.vgh_op``) on the on-surface
 rows and K3a + K3b (``ops.vg.vg_op``) on the others; on a CPU tensor those
 ops run their plain versions.  Any other net takes the plain Taylor-mode
 path, as the JAX package sends it to XLA.
@@ -65,9 +65,7 @@ import torch
 from ..config import TrainConfig
 from ..data.sampling import TrainingSampler
 from ..fields.siren import SirenSpec, init_siren
-from ..ops.kernel_io import kernel_spec_ok
-from ..ops.vg import vg_op
-from ..ops.vgh import vgh_op
+from ..ops.evaluate import autograd_ops
 from ..parallel.mesh import DataGroup, single
 from .checkpoint import AdamState
 from .losses import loss_s1, loss_s2, loss_siren
@@ -158,9 +156,7 @@ class Trainer:
         self.cfg = cfg
         self.device = sampler.device
         self.group = group if group is not None else single(sampler.device)
-        fused = kernel_spec_ok(spec)
-        self._vgh_op = vgh_op if fused else None
-        self._vg_op = vg_op if fused else None
+        self._vg_op, self._vgh_op = autograd_ops(spec)
         self.chunk_seconds = []  # (lo, hi, stage, seconds) per chunk of the last run
         self.last_swap_epoch = None  # the epoch the last run swapped samplers at
         # None on one rank; "sharded" (each rank its own sub-batch) or

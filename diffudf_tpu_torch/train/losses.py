@@ -10,6 +10,7 @@ Term-for-term mapping (reference lines):
   * loss_s1   — ``loss_functions.py:123-155``
   * loss_s2   — ``loss_functions.py:106-121`` (torch.std ⇒ Bessel-corrected)
   * loss_siren— ``loss_functions.py:82-104``
+  * total_variation, grad_consistency — ``loss_functions.py:56-80``
 """
 
 from __future__ import annotations
@@ -17,7 +18,8 @@ from __future__ import annotations
 import torch
 
 from ..autodiff.eigh3 import top_eigenvector_packed
-from ..autodiff.ops import value, value_grad, value_grad_hessian_packed
+from ..autodiff.ops import hess_from_packed, value, value_grad, value_grad_hessian_packed
+from ..ops.evaluate import autograd_ops
 
 _COS_EPS = 1e-8  # torch F.cosine_similarity denominator clamp
 
@@ -159,3 +161,67 @@ def loss_siren(params, spec, points, gt_normals, gt_sdf, weights, alpha=None):
 
 
 LOSS_FNS = {"s1": loss_s1, "s2": loss_s2, "siren": loss_siren}
+
+
+# --- auxiliary regularisers ---------------------------------------------------
+# Carried for inventory parity with the reference (``loss_functions.py:
+# 56-80``); no recipe uses them, in the JAX package either.
+
+
+def _derivs(spec, deriv_dtype, which, plain):
+    """The kernels' autograd op ``which`` of :func:`..ops.evaluate.
+    autograd_ops` for float32 carries and a net the kernels take, else
+    ``plain`` with ``deriv_dtype``."""
+    op = autograd_ops(spec)[which] if deriv_dtype is None else None
+    return op or (lambda params, spec, x: plain(params, spec, x, deriv_dtype))
+
+
+def total_variation(params, spec, points, gt_sdf, alpha, deriv_dtype=None, vgh_fn=None):
+    """|∇‖∇f‖| against the analytic second-derivative magnitude of the tanh
+    field, off-surface (``loss_functions.py:56-65``); ∇‖∇f‖ = H·∇f/‖∇f‖
+    from the fused (f, ∇f, H).
+
+    (f, ∇f, H) come from ``vgh_fn`` when given; else, with ``deriv_dtype``
+    None and a net the kernels take, from K1 + K2 (``ops.vgh.vgh_op``, its
+    plain versions on a CPU tensor), as the Trainer's s1 loss takes them;
+    otherwise from the plain Taylor-mode function."""
+    udf = gt_sdf[:, 0]
+    fn = vgh_fn or _derivs(spec, deriv_dtype, 1, value_grad_hessian_packed)
+    _, g, h6 = fn(params, spec, points)
+    h = hess_from_packed(h6)
+    gnorm = torch.clamp(torch.linalg.norm(g, dim=-1), min=1e-12)
+    grad_of_gnorm = torch.einsum("nij,nj->ni", h, g) / gnorm[:, None]
+    lhs = torch.linalg.norm(grad_of_gnorm, dim=-1)
+    t = torch.tanh(alpha * udf)
+    sech2 = 1.0 - t * t
+    rhs = 2.0 * alpha * torch.abs(sech2 - udf * t * sech2)
+    return _masked_mean(udf != 0, torch.abs(lhs - rhs))
+
+
+def grad_consistency(params, spec, generator, surf_points, gt_normals, alpha,
+                     stddev: float = 0.01, deriv_dtype=None, vg_fn=None):
+    """Consistency of the field at offsets along the GT normals
+    (``loss_functions.py:67-80``): -> the (direction, value, grad-norm)
+    residual means at x + n·ε, ε ~ N(0, σ²) drawn from ``generator`` (on
+    the points' device; the JAX function takes a key).  (f, ∇f) come from
+    ``vg_fn`` when given, else as :func:`total_variation` chooses, with K3a
+    + K3b (``ops.vg.vg_op``) for the kernels."""
+    eps = stddev * torch.randn((surf_points.shape[0], 1), generator=generator,
+                               device=surf_points.device, dtype=surf_points.dtype)
+    return _grad_consistency_at(params, spec, eps, surf_points, gt_normals, alpha,
+                                deriv_dtype, vg_fn)
+
+
+def _grad_consistency_at(params, spec, eps, surf_points, gt_normals, alpha,
+                         deriv_dtype=None, vg_fn=None):
+    """:func:`grad_consistency` at given offsets ``eps`` (N, 1)."""
+    fn = vg_fn or _derivs(spec, deriv_dtype, 0, value_grad)
+    f, g = fn(params, spec, surf_points + gt_normals * eps)
+    gn = g / torch.clamp(torch.linalg.norm(g, dim=-1, keepdim=True), min=1e-12)
+    e = eps[:, 0]
+    tan = torch.tanh(alpha * torch.abs(e))
+    dir_res = 1.0 - _cosine_sim(gn, gt_normals * torch.sign(eps))
+    val_res = torch.abs(f - e * tan)
+    norm_res = torch.abs(torch.linalg.norm(g, dim=-1)
+                         - torch.abs(tan + torch.abs(e) * alpha * (1.0 - tan * tan)))
+    return torch.mean(dir_res), torch.mean(val_res), torch.mean(norm_res)

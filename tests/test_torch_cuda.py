@@ -1,6 +1,7 @@
 """The port's CUDA kernels (K1, K2, K3a, K3b, K4, K5) against their plain
-torch versions, on a GPU, and the plain path for nets the kernels do not
-take.
+torch versions, on a GPU, the paths that run them (the auxiliary
+regularisers among them), the device sign relaxation, and the plain path
+for nets the kernels do not take.
 
 Marked ``cuda``; each test skips without a CUDA device.  This file imports
 neither jax nor the JAX package, so it also runs on a machine without them:
@@ -556,3 +557,88 @@ def test_point_cloud_round_launches():
                              num_points=10000, surf_thresh=0.2, max_iter=1, stats=stats)
     assert (tg.launches - before[0], tv.launches - before[1]) == (2, 1)
     assert (stats["rounds"], stats["k3a_launches"], stats["k1_launches"]) == (1, 2, 1)
+
+
+def _regulariser_case(hidden, n, seed=4):
+    spec = SirenSpec(hidden=hidden)
+    p = init_siren(spec, np.random.default_rng(seed))
+    rng = np.random.default_rng(seed + 1)
+    x = torch.as_tensor(rng.uniform(-1, 1, (n, 3)), dtype=torch.float32, device="cuda")
+    nrm = torch.as_tensor(rng.normal(size=(n, 3)), dtype=torch.float32, device="cuda")
+    nrm = nrm / nrm.norm(dim=1, keepdim=True)
+    sdf = (x.norm(dim=1, keepdim=True) - 0.6).abs()
+    return spec, p, x, nrm, sdf
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["total_variation", "grad_consistency"])
+@pytest.mark.parametrize("hidden,n", [((256,) * 8, 4099), ((64,) * 3, 1001)])
+def test_regularisers_run_on_the_kernels(name, hidden, n):
+    """total_variation on K1 + K2 and grad_consistency on K3a + K3b, one
+    launch each with the backward, against the plain Taylor-mode path on
+    the card: each term within the tolerance of the output it is built on
+    + RTOL |plain|, each gradient in the backward kernel's GTOL form."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: K1, K2, K3a and K3b have no CPU mode")
+    from diffudf_tpu_torch.autodiff.ops import value_grad, value_grad_hessian_packed
+    from diffudf_tpu_torch.train import losses
+
+    spec, p, x, nrm, sdf = _regulariser_case(hidden, n)
+
+    def run(**kw):
+        leaves = params_from_jax(p, "cuda")
+        for layer in leaves:
+            for t in layer.values():
+                t.requires_grad_(True)
+        if name == "total_variation":
+            vals = (losses.total_variation(leaves, spec, x, sdf, 10.0, **kw),)
+        else:
+            gen = torch.Generator(device="cuda").manual_seed(5)
+            vals = losses.grad_consistency(leaves, spec, gen, x, nrm, 10.0, **kw)
+        flat = [t for layer in leaves for t in (layer["w"], layer["b"])]
+        grads = torch.autograd.grad(sum(vals), flat, allow_unused=True)
+        return ([float(v.detach()) for v in vals],
+                [torch.zeros_like(t) if g is None else g for t, g in zip(flat, grads)])
+
+    mods = (tv, tv) if name == "total_variation" else (tg, tg)
+    before = (mods[0].launches, mods[1].bwd_launches)
+    got = run()
+    torch.cuda.synchronize()
+    assert (mods[0].launches - before[0], mods[1].bwd_launches - before[1]) == (1, 1)
+    if name == "total_variation":
+        want, tols, gtol = run(vgh_fn=value_grad_hessian_packed), ("h6",), GTOL["vgh_bwd"]
+    else:
+        want, tols, gtol = run(vg_fn=value_grad), ("g", "f", "g"), GTOL["vg_bwd"]
+    for g, w, k in zip(got[0], want[0], tols):
+        assert abs(g - w) <= TOL[k] + RTOL * abs(w), (g, w)
+    for g, w in zip(got[1], want[1]):
+        limit = gtol * max(float(w.abs().max()), 1.0) + RTOL * w.abs()
+        assert float(((g - w).abs() / limit).max()) <= 1
+
+
+@pytest.mark.cuda
+def test_device_relaxation_matches_the_loop_on_the_cpu(monkeypatch):
+    """The relaxation loop on the card gives the CPU run's signs, and
+    DIFFUDF_RELAX_ON_DEVICE=1 with a CUDA device takes it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from diffudf_tpu_torch.extract import meshudf
+
+    rng = np.random.default_rng(2)
+    n = 64
+    s = rng.choice([-1.0, 0.0, 1.0], size=(n, n, n)).astype(np.float32)
+    w = [(rng.normal(size=sh) * (rng.random(sh) < 0.8)).astype(np.float32)
+         for sh in ((n - 1, n, n), (n, n - 1, n), (n, n, n - 1))]
+    cpu = meshudf._relax_device(torch.from_numpy(s), [torch.from_numpy(a) for a in w], 30)
+    gpu = meshudf._relax_device(torch.from_numpy(s).cuda(),
+                                [torch.from_numpy(a).cuda() for a in w], 30)
+    assert torch.equal(cpu[0], gpu[0].cpu())
+    participate = s != 0
+    signs = np.where(s < 0, -1, 1).astype(np.int8)
+    monkeypatch.setenv("DIFFUDF_RELAX_ON_DEVICE", "1")
+    got = meshudf._relax(signs, w, participate, 30, "cuda")
+    want_s = cpu[0].numpy()
+    nz = (want_s != 0) & participate
+    want = signs.copy()
+    want[nz] = want_s[nz].astype(np.int8)
+    assert np.array_equal(got[0], want)

@@ -159,7 +159,9 @@ def test_port_imports_neither_jax_nor_the_jax_package(tmp_path):
     slice figures (``generate_df`` on a point cloud and on a mesh) and a
     one-shape ``quantitative`` sweep trained on 2 CPU ranks (``--mesh 2``,
     :mod:`diffudf_tpu_torch.parallel.mesh`) run, without jax or the JAX
-    package, and without matplotlib and PIL."""
+    package, and without matplotlib and PIL, in one process that imports
+    them once.  The spawned rank is held to the same boundary by
+    ``tests/test_torch_parallel.py::test_two_ranks_match_jax_and_one_rank``."""
     g = np.load(os.path.join(REPO, "tests", "golden", "st_image_golden.npz"))
     spec = SirenSpec(hidden=(64, 64, 64), w0=30.0)
     model = str(tmp_path / "model.npz")

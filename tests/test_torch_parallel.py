@@ -6,16 +6,21 @@ numpy inputs.
 The port's groups are gloo process groups of CPU ranks started by
 ``run_group``; each launch costs a few seconds of process start, so the
 file makes two: one of 2 ranks (collectives, the fast DP steps, the oracle
-swap's agreement, a short ``setup_train`` run and the sharded serving
-calls) and one of 4 (the fallback step).  The JAX references run on a 2-
-and a 4-device slice of the conftest's 8-device CPU mesh.  The rank functions live here and are
-imported by the spawned ranks, so JAX is imported inside the tests only.
+swap's agreement, a short ``setup_train`` run, the sharded serving calls,
+and a spawned rank free of JAX, matplotlib and PIL) and one of 4 (the
+fallback step).  The JAX references run on a 2- and a 4-device slice of
+the conftest's 8-device CPU mesh, on a thread of their own while the ranks
+run.  The rank functions live here and are imported by the spawned ranks,
+so JAX is imported inside the tests only.  Each launch has a time limit of
+its own (``GROUP_TIMEOUT_S``): a rank that hangs fails its test.
 """
 
+import concurrent.futures
 import dataclasses
 import json
 import os
 import re
+import sys
 
 import numpy as np
 import pytest
@@ -54,6 +59,10 @@ STEP_CFG = dict(num_epochs=4, s1_epochs=3, warmup_epochs=0, sampling_percentiles
 FAST_BATCH, FALLBACK_BATCH = 48, 30
 SERVE = dict(gt_mode="tanh", alpha=10.0)
 MARCH = dict(surface_threshold=0.03, max_iterations=40, fast=False)
+# seconds a launch's rendezvous, collectives and exit may wait for a rank
+GROUP_TIMEOUT_S = 240
+# packages the port's ranks never import
+FOREIGN = ("jax", "diffudf_tpu", "matplotlib", "PIL")
 
 
 @dataclasses.dataclass
@@ -157,6 +166,10 @@ def _two_ranks(group, inp):
         flat = torch.cat([t.detach().reshape(-1) for layer in getattr(state, name)
                           for t in (layer["w"], layer["b"])]).numpy()
         out[name + "_equal"] = bool(np.all(group.per_rank(flat) == flat[None]))
+    # the foreign packages each rank holds after all of the above (rank 0 is
+    # the test process)
+    foreign = [k for k in sys.modules if k.split(".")[0] in FOREIGN]
+    out["foreign"] = group.per_rank(np.array([len(foreign)])).ravel().tolist()
     return out
 
 
@@ -276,7 +289,8 @@ def test_two_ranks_match_jax_and_one_rank(tmp_path, monkeypatch):
     mesh; the sharded evaluate_field, extract_fields_sparse, trace_rays
     (both marches) and project_points against the port at one rank and the
     JAX package on a 2-device mesh; a short setup_train run (params and
-    best params equal on both ranks, rank 0 alone writes)."""
+    best params equal on both ranks, rank 0 alone writes); the spawned rank
+    imports neither jax, the JAX package, matplotlib nor PIL."""
     import jax.numpy as jnp
 
     from diffudf_tpu.fields.siren import SirenSpec as JaxSpec
@@ -291,7 +305,6 @@ def test_two_ranks_match_jax_and_one_rank(tmp_path, monkeypatch):
     local = jsampler.local(2)
     batches = [tuple(np.asarray(a) for a in local.sample(jax.random.fold_in(key, i)))
                for i in range(2)]
-    want_steps = _jax_steps(jax, jtrainer._build_sharded_batch_step, jsampler, jstate, key)
 
     g, field = _golden_net()
     rng = np.random.default_rng(3)
@@ -300,6 +313,26 @@ def test_two_ranks_match_jax_and_one_rank(tmp_path, monkeypatch):
            "rays": (g["ray_origins"], g["ray_dirs"]),
            "samples": rng.uniform(-1, 1, (400, 3)).astype(np.float32),
            "rank1_out": str(tmp_path / "rank1")}
+    jparams = [{k: jnp.asarray(v) for k, v in layer.items()} for layer in field]
+    jspec, jmesh = JaxSpec(hidden=HIDDEN, w0=30.0), data_mesh(2)
+    ones = np.ones(len(g["ray_origins"]), bool)
+    kw = dict(SERVE, num_steps=3, want_hessian_normals=True)
+
+    def jax_refs():
+        """The JAX package's step and serving calls on the 2-device mesh."""
+        return {
+            "steps": _jax_steps(jax, jtrainer._build_sharded_batch_step, jsampler, jstate, key),
+            "eval": jeval(jparams, jspec, inp["eval_points"], want_grad=True, want_hess=True,
+                          tile=64, mesh=jmesh),
+            "sparse": jlat.extract_fields_sparse(jparams, jspec, 33, "tanh", 10.0,
+                                                 deriv_dtype=None, mesh=jmesh),
+            "march": jtr.trace_rays(jparams, jspec, jnp.asarray(g["ray_origins"]),
+                                    jnp.asarray(g["ray_dirs"]), jnp.asarray(ones), **SERVE,
+                                    surface_threshold=0.03, max_iterations=40, fast=False,
+                                    mesh=jmesh),
+            "project": jpc.project_points(jparams, jspec, jnp.asarray(inp["samples"]),
+                                          mesh=jmesh, **kw)}
+
     monkeypatch.chdir(tmp_path)
     monkeypatch.setattr(tcli, "SLICE_WIDTH", 16)
     tpre.preprocess_mesh("demo", os.path.join(REPO, "data", "demo", "torus.obj"), 2000)
@@ -309,8 +342,13 @@ def test_two_ranks_match_jax_and_one_rank(tmp_path, monkeypatch):
         "sampling_percentiles": list(PCT),
         "gt_mode": "tanh", "alpha": 10, "onlyPCloud": True, "resolution": 0,
         "network": {"hidden_layer_nodes": list(HIDDEN), "w0": 30}}
-    out = mesh.run_group(_two_ranks, 2, (inp,), devices=["cpu", "cpu"])
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        refs = pool.submit(jax_refs)
+        out = mesh.run_group(_two_ranks, 2, (inp,), devices=["cpu", "cpu"],
+                             timeout_s=GROUP_TIMEOUT_S)
+        want = refs.result()
 
+    assert out["foreign"][1] == 0, "the spawned rank imported jax, diffudf_tpu, matplotlib or PIL"
     assert np.array_equal(out["gather"], [[1.5, 1.5]] * 3 + [[-0.0, -0.0]] * 2)
     assert np.signbit(out["gather"][3:]).all()
     assert out["gather_bool"].tolist() == [False] * 3 + [True] * 2
@@ -319,23 +357,18 @@ def test_two_ranks_match_jax_and_one_rank(tmp_path, monkeypatch):
     np.testing.assert_array_equal(out["all_reduce_grad"], 2 * 2 * 3 * np.arange(4.0))
 
     assert out["dp"] == "sharded"
-    _check_steps(out["steps"], want_steps)
+    _check_steps(out["steps"], want["steps"])
     assert out["swaps"] == [[2, -1], [2, -1]]
 
     params, spec = params_from_jax(field, "cpu"), SirenSpec(hidden=HIDDEN, w0=30.0)
-    jparams = [{k: jnp.asarray(v) for k, v in layer.items()} for layer in field]
-    jspec, jmesh = JaxSpec(hidden=HIDDEN, w0=30.0), data_mesh(2)
     one = evaluate_field(params, spec, torch.as_tensor(inp["eval_points"]), want_hess=True)
-    jev = jeval(jparams, jspec, inp["eval_points"], want_grad=True, want_hess=True, tile=64,
-                mesh=jmesh)
-    for got, ref, jref, tol in zip(out["eval"], one, jev, (1e-6, 1e-5, 1e-3)):
+    for got, ref, jref, tol in zip(out["eval"], one, want["eval"], (1e-6, 1e-5, 1e-3)):
         np.testing.assert_allclose(got, ref.numpy(), rtol=0, atol=tol)
         np.testing.assert_allclose(got, np.asarray(jref), rtol=1e-4, atol=tol)
 
     udf, dirs = out["sparse"]
     udf1, dirs1 = lattice.extract_fields_sparse(params, spec, 33, "tanh", 10.0)
-    udf0, dirs0 = jlat.extract_fields_sparse(jparams, jspec, 33, "tanh", 10.0, deriv_dtype=None,
-                                             mesh=jmesh)
+    udf0, dirs0 = want["sparse"]
     np.testing.assert_allclose(udf, udf1, rtol=0, atol=1e-6)
     np.testing.assert_allclose(dirs, dirs1, rtol=0, atol=1e-5)
     diff = np.abs(udf - udf0)
@@ -344,12 +377,8 @@ def test_two_ranks_match_jax_and_one_rank(tmp_path, monkeypatch):
     assert (has == (np.linalg.norm(dirs, axis=-1) > 0)).mean() > 0.999 and has.sum() > 100
     assert (np.sum(dirs[has] * dirs0[has], axis=-1) > 0.999).mean() > 0.99
 
-    ones = np.ones(len(g["ray_origins"]), bool)
     pos1, hits1, it1 = tracer.trace_rays(params, spec, *inp["rays"], ones, **SERVE, **MARCH)
-    jpos, jhits, jit = jtr.trace_rays(jparams, jspec, jnp.asarray(g["ray_origins"]),
-                                      jnp.asarray(g["ray_dirs"]), jnp.asarray(ones), **SERVE,
-                                      surface_threshold=0.03, max_iterations=40, fast=False,
-                                      mesh=jmesh)
+    jpos, jhits, jit = want["march"]
     cpos1, chits1, cit1 = tracer.trace_rays_compacted(params, spec, *inp["rays"], ones,
                                                       **SERVE, **MARCH)
     for (pos, hits, it), (ref_pos, ref_hits, ref_it) in (
@@ -360,10 +389,8 @@ def test_two_ranks_match_jax_and_one_rank(tmp_path, monkeypatch):
         np.testing.assert_array_equal(hits, ref_hits)
         np.testing.assert_allclose(pos[hits], ref_pos[hits], rtol=0, atol=1e-4)
 
-    kw = dict(SERVE, num_steps=3, want_hessian_normals=True)
     one = project_points(params, spec, torch.as_tensor(inp["samples"]), **kw)
-    jone = jpc.project_points(jparams, jspec, jnp.asarray(inp["samples"]), mesh=jmesh, **kw)
-    for ref in ((t.numpy() for t in one), (np.asarray(t) for t in jone)):
+    for ref in ((t.numpy() for t in one), (np.asarray(t) for t in want["project"])):
         x, step, nrm = ref
         err = np.abs(out["project"][0] - x).max(axis=1)
         assert err.max() <= 1e-5 and np.median(err) <= 1e-6, (err.max(), np.median(err))
@@ -388,9 +415,14 @@ def test_four_rank_fallback_matches_jax_and_one_device():
     jax, jtrainer, jsampler, jstate, np_params = _jax_trainer(FALLBACK_BATCH, 4)
     key = jax.random.PRNGKey(7)
     batch = tuple(np.asarray(a) for a in jsampler.sample(key))
-    want = _jax_steps(jax, jtrainer._build_constrained_batch_step, jsampler, jstate, key)
-    with pytest.warns(RuntimeWarning, match="falling back to the constrained-sharding DP step"):
-        out = mesh.run_group(_four_ranks, 4, (batch, np_params), devices=["cpu"] * 4)
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        want = pool.submit(_jax_steps, jax, jtrainer._build_constrained_batch_step, jsampler,
+                           jstate, key)
+        with pytest.warns(RuntimeWarning,
+                          match="falling back to the constrained-sharding DP step"):
+            out = mesh.run_group(_four_ranks, 4, (batch, np_params), devices=["cpu"] * 4,
+                                 timeout_s=GROUP_TIMEOUT_S)
+        want = want.result()
     assert out["dp"] == "constrained" and out["rows"] == (8, 8 / 30)
     _check_steps(out["steps"], want)
     single = _steps(_fixed_trainer(None, batch, FALLBACK_BATCH), mesh.single(), np_params)

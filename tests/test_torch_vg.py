@@ -39,7 +39,7 @@ def _jax_grads(jparams, jspec, x):
         f, g = value_grad(p, jspec, jnp.asarray(x))
         return jnp.sum(jnp.sin(f)) + jnp.sum(g * g)
 
-    return jax.grad(loss)(jparams)
+    return jax.jit(jax.grad(loss))(jparams)
 
 
 def _assert_grads_close(got, want, gtol):
@@ -55,7 +55,7 @@ def _assert_grads_close(got, want, gtol):
 def test_reference_matches_jax_value_grad(hidden, n):
     spec, jspec, np_params, jparams, x = _case(hidden, n)
     got = tg.vg_reference(params_from_jax(np_params, "cpu"), spec, torch.from_numpy(x))
-    want = value_grad(jparams, jspec, jnp.asarray(x))
+    want = jax.jit(lambda p, y: value_grad(p, jspec, y))(jparams, jnp.asarray(x))
     for k, a, b in zip(("f", "g"), got, want):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=0, atol=TOL[k], err_msg=k)
 
