@@ -1,0 +1,8 @@
+"""CUDA kernels launched a stage-1 step: the kernels of the traced stretch
+over its steps, a count."""
+
+from benchmark import stage_metrics
+
+
+def read(ctx):
+    return stage_metrics.launches_per_step(ctx, "s1")
