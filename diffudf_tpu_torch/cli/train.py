@@ -48,6 +48,7 @@ from ..parallel.mesh import spread
 from ..train import checkpoint as ckpt
 from ..train.loop import Trainer
 from ..utils.metrics import ScalarLogger
+from ..utils.timing import span
 from .generate_df import slice_figure
 
 SLICE_WIDTH = 512  # the figure's plane samples a side (JAX ``train.py:287-292``)
@@ -83,16 +84,20 @@ def build_sampler(cfg: TrainConfig, device="cuda", cache_writer: bool = True):
     shared with the JAX package; see :mod:`..data.oracle_cache`).  Set
     ``DIFFUDF_ORACLE_CACHE=0`` to disable.  ``cache_writer=False`` (the
     data-parallel ranks other than 0) waits for another process to write
-    the cache.  -> (sampler, cloud, mesh or None)."""
-    pc, tris, mesh = _load_inputs(cfg)
+    the cache.  The load is the span ``data.load_inputs``, the sampler's
+    construction (cache read or build, upload) ``data.oracle``.  -> (sampler,
+    cloud, mesh or None)."""
+    with span("data.load_inputs"):
+        pc, tris, mesh = _load_inputs(cfg)
     kw = dict(cache_path=_cache_path(cfg), device=device,
               cache_wait_s=0.0 if cache_writer else CACHE_WAIT_S)
-    if tris is None:
-        sampler = TrainingSampler.from_point_cloud(
-            pc.points, pc.normals, cfg.batch_size, cfg.sampling_percentiles, **kw)
-    else:
-        sampler = TrainingSampler.from_mesh(
-            pc.points, pc.normals, tris, cfg.batch_size, cfg.sampling_percentiles, **kw)
+    with span("data.oracle"):
+        if tris is None:
+            sampler = TrainingSampler.from_point_cloud(
+                pc.points, pc.normals, cfg.batch_size, cfg.sampling_percentiles, **kw)
+        else:
+            sampler = TrainingSampler.from_mesh(
+                pc.points, pc.normals, tris, cfg.batch_size, cfg.sampling_percentiles, **kw)
     return sampler, pc, mesh
 
 

@@ -29,6 +29,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..utils.timing import span
 from .mesh_distance import (
     build_triangle_table,
     point_cloud_distance,
@@ -194,40 +195,45 @@ class TrainingSampler:
             sz.on_surface // n_devices, sz.far // n_devices, sz.near // n_devices))
 
     def sample(self, gen: torch.Generator):
-        """-> (points (B,3), normals (B,3), sdf (B,1)), B = sizes.total."""
+        """-> (points (B,3), normals (B,3), sdf (B,1)), B = sizes.total.
+        The draws and gathers are the span ``sample.draw``, the oracle that
+        answers ``sample.oracle``."""
         sz = self.sizes
         dev = self.device
         n_cloud = self.surface_points.shape[0]
-        surf_idx = torch.randint(0, n_cloud, (sz.on_surface,), generator=gen, device=dev)
-        surf_pts = self.surface_points[surf_idx]
-        surf_nrm = self.surface_normals[surf_idx]
+        with span("sample.draw"):
+            surf_idx = torch.randint(0, n_cloud, (sz.on_surface,), generator=gen, device=dev)
+            surf_pts = self.surface_points[surf_idx]
+            surf_nrm = self.surface_normals[surf_idx]
 
-        far_pts = torch.rand((sz.far, 3), generator=gen, device=dev) * 2.0 - 1.0
+            far_pts = torch.rand((sz.far, 3), generator=gen, device=dev) * 2.0 - 1.0
 
-        near_sel = torch.randint(0, sz.on_surface, (sz.near,), generator=gen, device=dev)
-        offset = self.stddev * torch.randn((sz.near, 1), generator=gen, device=dev)
-        near_pts = surf_pts[near_sel] + surf_nrm[near_sel] * offset
+            near_sel = torch.randint(0, sz.on_surface, (sz.near,), generator=gen, device=dev)
+            offset = self.stddev * torch.randn((sz.near, 1), generator=gen, device=dev)
+            near_pts = surf_pts[near_sel] + surf_nrm[near_sel] * offset
 
-        if self.oracle == "mesh":
-            # UNSIGNED distance (the JAX package's documented deviation): the
-            # reference feeds Open3D *signed* distances here (dataset.py:35,
-            # 50), but no loss reads the sign: every tanh-mode term is even
-            # in the GT distance and the siren loss only tests d == 0.  So the
-            # oracle skips the winding-number sweep.
-            q = torch.cat([far_pts, near_pts], dim=0)
-            if self.tri_table is not None:
-                both = point_triangle_distance_table(q, self.tri_table)
-            elif self.tri_candidates is not None:
-                both = point_triangle_distance_cells(q, self.tri_verts, self.tri_candidates)
+        with span("sample.oracle"):
+            if self.oracle == "mesh":
+                # UNSIGNED distance (the JAX package's documented deviation):
+                # the reference feeds Open3D *signed* distances here
+                # (dataset.py:35, 50), but no loss reads the sign: every
+                # tanh-mode term is even in the GT distance and the siren
+                # loss only tests d == 0.  So the oracle skips the
+                # winding-number sweep.
+                q = torch.cat([far_pts, near_pts], dim=0)
+                if self.tri_table is not None:
+                    both = point_triangle_distance_table(q, self.tri_table)
+                elif self.tri_candidates is not None:
+                    both = point_triangle_distance_cells(q, self.tri_verts, self.tri_candidates)
+                else:
+                    both = point_triangle_distance_bootstrap(q, self.tri_verts)
+                far_sdf, near_sdf = both[:sz.far], both[sz.far:]
+            elif self.pc_candidates is not None:
+                far_sdf = point_cloud_distance_cells(far_pts, self.pc_candidates)
+                near_sdf = torch.abs(offset)[:, 0]
             else:
-                both = point_triangle_distance_bootstrap(q, self.tri_verts)
-            far_sdf, near_sdf = both[:sz.far], both[sz.far:]
-        elif self.pc_candidates is not None:
-            far_sdf = point_cloud_distance_cells(far_pts, self.pc_candidates)
-            near_sdf = torch.abs(offset)[:, 0]
-        else:
-            far_sdf = point_cloud_distance(far_pts, self.surface_points)
-            near_sdf = torch.abs(offset)[:, 0]
+                far_sdf = point_cloud_distance(far_pts, self.surface_points)
+                near_sdf = torch.abs(offset)[:, 0]
 
         points = torch.cat([surf_pts, far_pts, near_pts], dim=0)
         normals = torch.cat(

@@ -67,11 +67,17 @@ from ..data.sampling import TrainingSampler
 from ..fields.siren import SirenSpec, init_siren
 from ..ops.evaluate import autograd_ops
 from ..parallel.mesh import DataGroup, single
+from ..utils import timing
+from ..utils.timing import span
 from .checkpoint import AdamState
 from .losses import loss_s1, loss_s2, loss_siren
 from .schedule import lr_for_epoch, lr_for_epoch_siren
 
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
+
+# on-surface rows of the batches ``Trainer.epoch`` drew, since the count was
+# last set to 0; over ``autodiff.ops.value_rows`` the value path's useful share
+surface_rows = 0
 
 TERM_NAMES = {
     "s1": ("sdf_on_surf", "sdf_off_surf", "hessian_constraint", "grad_constraint"),
@@ -273,40 +279,53 @@ class Trainer:
         rows -> (terms row (in ``TERM_NAMES`` order), their sum, grads):
         the terms of the whole batch and the gradient of their sum with
         respect to ``params``, the same on every rank."""
-        terms = self._loss_terms(stage, params, points, normals, sdf, n_surface)
-        row = torch.stack([terms[k] for k in TERM_NAMES[stage]])
         parallel = self.group.backend is not None
-        if parallel and stage != "s2":
-            row = self.group.all_reduce_sum(row * share)
-        total = row.sum()
-        grads = torch.autograd.grad(total, _leaves(params))
-        if parallel:
-            # the all-reduce's backward summed the gradient of the one loss
-            # over the ranks: the sum over the ranks is size times it
-            flat = self.group.all_reduce_sum(_flat(grads)) / self.group.size
-            grads = torch.split(flat, [g.numel() for g in grads])
-            grads = [g.view_as(p) for g, p in zip(grads, _leaves(params))]
+        with span("train.loss"):
+            terms = self._loss_terms(stage, params, points, normals, sdf, n_surface)
+            row = torch.stack([terms[k] for k in TERM_NAMES[stage]])
+            if parallel and stage != "s2":
+                row = self.group.all_reduce_sum(row * share)
+            total = row.sum()
+        with span("train.backward"):
+            grads = torch.autograd.grad(total, _leaves(params))
+            if parallel:
+                # the all-reduce's backward summed the gradient of the one
+                # loss over the ranks: the sum over the ranks is size times it
+                flat = self.group.all_reduce_sum(_flat(grads)) / self.group.size
+                grads = torch.split(flat, [g.numel() for g in grads])
+                grads = [g.view_as(p) for g, p in zip(grads, _leaves(params))]
         return row, total, grads
 
     def epoch(self, state: TrainState, stage: str, epoch: int, gen: torch.Generator):
         """Run one epoch in place on ``state``; -> its log row, a device
-        tensor (terms..., total) summed over the batches, then epoch_loss."""
-        lr = self.lr(stage, epoch)
-        names = TERM_NAMES[stage]
-        sums = torch.zeros(len(names) + 1, device=self.device)
-        for _ in range(self.cfg.batches_per_epoch):
-            row, total, grads = self.batch_step(stage, state.params, *self.draw(gen))
-            state.opt_state = adam_update(state.params, grads, state.opt_state, lr)
-            sums += torch.cat([row, total[None]]).detach()
-        epoch_loss = sums[-1] / self.cfg.batches_per_epoch
-        # the JAX package's quirk, kept: the params chosen are those AFTER
-        # this epoch's updates, on the loss measured before them
-        is_best = epoch_loss < state.best_loss
-        state.best_loss = torch.where(is_best, epoch_loss, state.best_loss)
-        with torch.no_grad():
-            for new, old in zip(_leaves(state.params), _leaves(state.best_params)):
-                old.copy_(torch.where(is_best, new, old))
-        return torch.cat([sums, epoch_loss[None]])
+        tensor (terms..., total) summed over the batches, then epoch_loss.
+        The epoch is the span ``train.epoch`` of step id ``epoch``, each
+        batch a ``train.step`` of ``train.draw``, ``train.loss``,
+        ``train.backward`` and ``train.adam`` (:mod:`..utils.timing`)."""
+        global surface_rows
+        timing.set_step(epoch)
+        with span("train.epoch"):
+            lr = self.lr(stage, epoch)
+            names = TERM_NAMES[stage]
+            sums = torch.zeros(len(names) + 1, device=self.device)
+            for _ in range(self.cfg.batches_per_epoch):
+                with span("train.step"):
+                    with span("train.draw"):
+                        batch = self.draw(gen)
+                    surface_rows += batch[3]
+                    row, total, grads = self.batch_step(stage, state.params, *batch)
+                    with span("train.adam"):
+                        state.opt_state = adam_update(state.params, grads, state.opt_state, lr)
+                sums += torch.cat([row, total[None]]).detach()
+            epoch_loss = sums[-1] / self.cfg.batches_per_epoch
+            # the JAX package's quirk, kept: the params chosen are those
+            # AFTER this epoch's updates, on the loss measured before them
+            is_best = epoch_loss < state.best_loss
+            state.best_loss = torch.where(is_best, epoch_loss, state.best_loss)
+            with torch.no_grad():
+                for new, old in zip(_leaves(state.params), _leaves(state.best_params)):
+                    old.copy_(torch.where(is_best, new, old))
+            return torch.cat([sums, epoch_loss[None]])
 
     def chunk_edges(self, start_epoch: int, chunk_size: int):
         """(lo, hi) epoch ranges: chunks of up to ``chunk_size`` (or the

@@ -20,6 +20,7 @@ import torch
 from ..autodiff.eigh3 import top_eigenvector_packed
 from ..autodiff.ops import hess_from_packed, value, value_grad, value_grad_hessian_packed
 from ..ops.evaluate import autograd_ops
+from ..utils.timing import span
 
 _COS_EPS = 1e-8  # torch F.cosine_similarity denominator clamp
 
@@ -48,6 +49,8 @@ def loss_s1(params, spec, points, gt_normals, gt_sdf, weights, alpha,
     then compute (f, g, h6) of the surface rows and (f, g) of the others;
     the kernels mask their ragged last tile, so no padding.
     Without them the plain Taylor-mode functions of ``autodiff.ops`` run.
+    The derivatives are the span ``loss.derivs``, the eigenvectors
+    ``loss.eig`` and the rest ``loss.terms``.
     """
     w0, w1, w2, w3 = (float(w) for w in weights)
     udf = gt_sdf[:, 0]
@@ -59,52 +62,58 @@ def loss_s1(params, spec, points, gt_normals, gt_sdf, weights, alpha,
     # a data-parallel rank's block may hold only surface rows, or none
     split = need_h and n_surface is not None and 0 <= n_surface <= points.shape[0]
 
-    if need_h and not split:
-        f, g, h6_surf = value_grad_hessian_packed(params, spec, points)
-        surf_normals = gt_normals
-        surf_mask = on_surf
-    elif split:
-        surf, off = points[:n_surface], points[n_surface:]
-        if vgh_fn is not None:
-            fs, gs, h6_surf = vgh_fn(params, spec, surf)
+    with span("loss.derivs"):
+        if need_h and not split:
+            f, g, h6_surf = value_grad_hessian_packed(params, spec, points)
+            surf_normals = gt_normals
+            surf_mask = on_surf
+        elif split:
+            surf, off = points[:n_surface], points[n_surface:]
+            if vgh_fn is not None:
+                fs, gs, h6_surf = vgh_fn(params, spec, surf)
+            else:
+                fs, gs, h6_surf = value_grad_hessian_packed(params, spec, surf)
+            if vg_fn is not None:
+                fo, go = vg_fn(params, spec, off)
+            else:
+                fo, go = value_grad(params, spec, off)
+            f = torch.cat([fs, fo])
+            g = torch.cat([gs, go])
+            surf_normals = gt_normals[:n_surface]
+            surf_mask = on_surf[:n_surface]
+        elif need_g:
+            f, g = value_grad(params, spec, points)
         else:
-            fs, gs, h6_surf = value_grad_hessian_packed(params, spec, surf)
-        if vg_fn is not None:
-            fo, go = vg_fn(params, spec, off)
-        else:
-            fo, go = value_grad(params, spec, off)
-        f = torch.cat([fs, fo])
-        g = torch.cat([gs, go])
-        surf_normals = gt_normals[:n_surface]
-        surf_mask = on_surf[:n_surface]
-    elif need_g:
-        f, g = value_grad(params, spec, points)
-    else:
-        f = value(params, spec, points)
-
-    tan = torch.tanh(alpha * udf)
-    tdf = udf * tan
-
-    terms = {}
-    terms["sdf_on_surf"] = _masked_mean(on_surf, torch.abs(f)) * w0
-    terms["sdf_off_surf"] = _masked_mean(~on_surf, torch.abs(tdf - f)) * w1
+            f = value(params, spec, points)
 
     if need_h:
-        pred_normals = top_eigenvector_packed(h6_surf)
-        align = 1.0 - torch.abs(_cosine_sim(surf_normals, pred_normals))
-        # masked mean over the FULL batch size (reference semantics: zeros
-        # for off-surface rows still count in the denominator)
-        total = torch.sum(torch.where(surf_mask, align, torch.zeros_like(align))) / points.shape[0]
-        terms["hessian_constraint"] = total * w2
-    else:
-        terms["hessian_constraint"] = torch.zeros((), device=points.device)
+        with span("loss.eig"):
+            pred_normals = top_eigenvector_packed(h6_surf)
 
-    if need_g:
-        target = torch.abs(tan + udf * alpha * (1.0 - tan * tan))
-        gnorm = torch.linalg.norm(g, dim=-1)
-        terms["grad_constraint"] = torch.mean(torch.abs(gnorm - target)) * w3
-    else:
-        terms["grad_constraint"] = torch.zeros((), device=points.device)
+    with span("loss.terms"):
+        tan = torch.tanh(alpha * udf)
+        tdf = udf * tan
+
+        terms = {}
+        terms["sdf_on_surf"] = _masked_mean(on_surf, torch.abs(f)) * w0
+        terms["sdf_off_surf"] = _masked_mean(~on_surf, torch.abs(tdf - f)) * w1
+
+        if need_h:
+            align = 1.0 - torch.abs(_cosine_sim(surf_normals, pred_normals))
+            # masked mean over the FULL batch size (reference semantics:
+            # zeros for off-surface rows still count in the denominator)
+            total = (torch.sum(torch.where(surf_mask, align, torch.zeros_like(align)))
+                     / points.shape[0])
+            terms["hessian_constraint"] = total * w2
+        else:
+            terms["hessian_constraint"] = torch.zeros((), device=points.device)
+
+        if need_g:
+            target = torch.abs(tan + udf * alpha * (1.0 - tan * tan))
+            gnorm = torch.linalg.norm(g, dim=-1)
+            terms["grad_constraint"] = torch.mean(torch.abs(gnorm - target)) * w3
+        else:
+            terms["grad_constraint"] = torch.zeros((), device=points.device)
 
     return terms
 

@@ -1,8 +1,8 @@
-"""Scalar logging, phase timing and profiling (the JAX package's
-``utils`` names)."""
+"""Scalar logging, spans and profiling (the JAX package's ``utils``
+names, with ``span`` in place of its ``PhaseTimer``)."""
 
 from .metrics import ScalarLogger
 from .profiling import trace_to
-from .timing import PhaseTimer
+from .timing import span
 
-__all__ = ["ScalarLogger", "PhaseTimer", "trace_to"]
+__all__ = ["ScalarLogger", "span", "trace_to"]

@@ -270,16 +270,21 @@ JAX_PACKAGES = ("autodiff", "data", "eval", "extract", "fields", "grid", "ops", 
                 "pc", "render", "train", "utils")
 # the JAX device mesh: DataGroup and run_group take its place
 JAX_MESH_NAMES = {"batch_spec", "data_mesh", "replicate", "shard_batch"}
+# names of the JAX package that the port replaces: package -> {JAX name: port name}
+REPLACED = {"parallel": dict.fromkeys(JAX_MESH_NAMES, "DataGroup"),
+            "utils": {"PhaseTimer": "span"}}
 
 
 @pytest.mark.parametrize("package", JAX_PACKAGES)
 def test_every_jax_package_name_imports_from_the_port(package):
     jax_names = set(importlib.import_module(f"diffudf_tpu.{package}").__all__)
     port = importlib.import_module(f"diffudf_tpu_torch.{package}")
-    missing = jax_names - set(port.__all__) - (JAX_MESH_NAMES if package == "parallel" else set())
+    replaced = REPLACED.get(package, {})
+    missing = jax_names - set(port.__all__) - set(replaced)
     assert not missing, f"diffudf_tpu_torch.{package} lacks {sorted(missing)}"
     for name in port.__all__:
         assert getattr(port, name) is not None
+    assert set(replaced.values()) <= set(port.__all__)
+    assert not set(replaced) & set(port.__all__)
     if package == "parallel":
-        assert {"DataGroup", "run_group"} <= set(port.__all__)
-        assert not JAX_MESH_NAMES & set(port.__all__)
+        assert "run_group" in port.__all__

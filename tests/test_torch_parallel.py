@@ -39,7 +39,8 @@ from diffudf_tpu_torch.render import tracer
 from diffudf_tpu_torch.train.loop import TERM_NAMES, Trainer
 from diffudf_tpu_torch.utils.metrics import ScalarLogger
 from diffudf_tpu_torch.utils.profiling import trace_to
-from diffudf_tpu_torch.utils.timing import PhaseTimer, force_sync
+from diffudf_tpu_torch.utils import timing
+from diffudf_tpu_torch.utils.timing import force_sync
 
 torch.set_num_threads(2)
 
@@ -433,7 +434,8 @@ def test_four_rank_fallback_matches_jax_and_one_device():
 
 
 def test_phase_timer_trace_to_and_event_file(tmp_path):
-    """tests/test_utils_aux.py's PhaseTimer case; force_sync reads one
+    """tests/test_utils_aux.py's PhaseTimer case, on the span recorder's
+    ``summary()``, which takes PhaseTimer's place; force_sync reads one
     element; trace_to writes a Chrome trace on the CPU; the logger's
     TensorBoard event file decodes with TensorBoard's own Event proto."""
     import struct
@@ -458,16 +460,21 @@ def test_phase_timer_trace_to_and_event_file(tmp_path):
             for e in events[1:]] == [(0, "loss", 3.0), (1, "loss", 2.0), (2, "loss", 1.5)]
     assert crc32c(b"123456789") == 0xE3069283  # the CRC-32C check value
 
-    t = PhaseTimer()
-    with t.phase("a"):
-        time.sleep(0.01)
-    with t.phase("a"):
-        time.sleep(0.01)
-    with t.phase("b"):
-        pass
-    rep = t.report()
-    assert rep["a"]["calls"] == 2 and rep["a"]["seconds"] >= 0.02 and "b" in rep
-    assert "a: " in str(t)
+    timing.clear()
+    timing.enable(True)
+    try:
+        with timing.span("a"):
+            time.sleep(0.01)
+        with timing.span("a"):
+            time.sleep(0.01)
+        with timing.span("b"):
+            pass
+    finally:
+        timing.enable(False)
+    rep = timing.summary()
+    timing.clear()
+    assert rep["a"]["calls"] == 2 and rep["a"]["total_ns"] >= 0.02e9 and "b" in rep
+    assert rep["a"]["self_ns"] == rep["a"]["total_ns"]
     with trace_to(str(tmp_path)):
         x = torch.ones(4, 4) @ torch.ones(4, 4)
     assert force_sync({"x": [x]}) == 4.0
