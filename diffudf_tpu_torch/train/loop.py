@@ -20,7 +20,20 @@ path, as the JAX package sends it to XLA.
 Optimizer: Adam with torch-default hyperparameters (β=(0.9, 0.999),
 ε=1e-8), optax's ``scale_by_adam`` written out, with the learning rate
 multiplying the preconditioned update per step (``loop.py:20-22, 234`` of the
-JAX package).
+JAX package).  The learning rate and the bias corrections reach the update
+as device scalars (:func:`adam_scalars`), so a captured step reads the
+values of the step it replays.
+
+CUDA graph: on one CUDA device, an s2 or siren epoch runs as one
+``torch.cuda.CUDAGraph`` replay.  The draw stays eager, on the trainer's
+generator, and its tensors are copied into the graph's input buffers; the
+graph holds the loss, ``torch.autograd.grad``, the Adam updates, the
+epoch's sums and the best-loss / best-params update, all in place on the
+state.  The first epoch of a new key (stage, batch shapes,
+``batches_per_epoch``, the state's tensors) runs the same step eagerly on a
+side stream, the next captures it, and later epochs replay it.  CPU
+tensors, a process group and s1 (whose kernels count their launches in
+Python) take the eager step.
 
 Random keys: the state carries a (2,) uint32 key.  Each chunk seeds the
 sampling generator from it and replaces it by the next key of a fixed host
@@ -62,6 +75,7 @@ import warnings
 import numpy as np
 import torch
 
+from ..autodiff import ops as autodiff_ops
 from ..config import TrainConfig
 from ..data.sampling import TrainingSampler
 from ..fields.siren import SirenSpec, init_siren
@@ -78,6 +92,12 @@ ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
 # on-surface rows of the batches ``Trainer.epoch`` drew, since the count was
 # last set to 0; over ``autodiff.ops.value_rows`` the value path's useful share
 surface_rows = 0
+# epochs ``Trainer.epoch`` ran by replaying a captured CUDA graph, by
+# capturing one (and replaying it), and eagerly, since the counts were last
+# set to 0: each epoch adds 1 to one of them
+graph_replays = 0
+graph_captures = 0
+eager_steps = 0
 
 TERM_NAMES = {
     "s1": ("sdf_on_surf", "sdf_off_surf", "hessian_constraint", "grad_constraint"),
@@ -123,27 +143,98 @@ def _leaves(params):
     return [t for layer in params for t in (layer["w"], layer["b"])]
 
 
-def adam_update(params, grads, opt: AdamState, lr: float) -> AdamState:
+def adam_scalars(counts, lr: float, device, out=None) -> torch.Tensor:
+    """(len(counts), 3) float32 rows (lr, bc1, bc2) on ``device``, into
+    ``out`` if given: the learning rate and optax's bias corrections
+    ``1 - b ** count`` in float32, a row for each Adam step count.  On CUDA
+    one host-to-device copy from a freshly allocated pinned buffer, which
+    the caching host allocator keeps until the copy has run, so the host
+    does not wait for the device."""
+    b1, b2 = np.float32(ADAM_B1), np.float32(ADAM_B2)
+    rows = [(float(np.float32(lr)), float(1 - b1 ** np.float32(c)), float(1 - b2 ** np.float32(c)))
+            for c in counts]
+    cuda = torch.device(device).type == "cuda"
+    host = torch.tensor(rows, dtype=torch.float32, pin_memory=cuda)
+    if out is None:
+        return host.to(device, non_blocking=True)
+    return out.copy_(host, non_blocking=True)
+
+
+def adam_apply(params, grads, mu, nu, scalars):
     """One optax ``scale_by_adam`` step followed by ``p - lr * u``, in place
-    on ``params`` and on the moments; -> the new state."""
+    on ``params`` and on the moments ``mu``, ``nu`` (leaf lists);
+    ``scalars`` is a (3,) device row of :func:`adam_scalars`."""
     p, g = _leaves(params), list(grads)
-    mu, nu = _leaves(opt.mu), _leaves(opt.nu)
-    count = opt.count + 1
+    mu, nu = _leaves(mu), _leaves(nu)
+    lr, bc1, bc2 = scalars[0], scalars[1], scalars[2]
     with torch.no_grad():
         torch._foreach_mul_(mu, ADAM_B1)
         torch._foreach_add_(mu, g, alpha=1.0 - ADAM_B1)
         torch._foreach_mul_(nu, ADAM_B2)
         torch._foreach_addcmul_(nu, g, g, value=1.0 - ADAM_B2)
-        # bias corrections in float32, as optax computes decay ** count
-        bc1 = float(1 - np.float32(ADAM_B1) ** np.float32(count))
-        bc2 = float(1 - np.float32(ADAM_B2) ** np.float32(count))
         denom = torch._foreach_div(nu, bc2)
         torch._foreach_sqrt_(denom)
         torch._foreach_add_(denom, ADAM_EPS)
         upd = torch._foreach_div(mu, bc1)
         torch._foreach_div_(upd, denom)
-        torch._foreach_add_(p, upd, alpha=-lr)
+        torch._foreach_mul_(upd, lr)
+        torch._foreach_sub_(p, upd)
+
+
+def adam_update(params, grads, opt: AdamState, lr: float) -> AdamState:
+    """One Adam step (:func:`adam_apply`) at learning rate ``lr``, in place
+    on ``params`` and on the moments; -> the new state."""
+    count = opt.count + 1
+    scalars = adam_scalars([count], lr, _leaves(params)[0].device)
+    adam_apply(params, grads, opt.mu, opt.nu, scalars[0])
     return AdamState(count, opt.mu, opt.nu)
+
+
+def _state_tensors(state: TrainState) -> list:
+    """The tensors of ``state`` that an epoch updates in place."""
+    opt = state.opt_state
+    return (_leaves(state.params) + _leaves(opt.mu) + _leaves(opt.nu)
+            + _leaves(state.best_params) + [state.best_loss])
+
+
+class _StepGraph:
+    """An epoch's step captured as a CUDA graph, for one key and the
+    tensors of one state: the input batches and Adam rows it reads, the
+    log row it writes, and the side stream it warms up and captures on."""
+
+    def __init__(self, key, state: TrainState, inputs, scalars):
+        self.key, self.tensors = key, _state_tensors(state)
+        self.inputs, self.scalars = inputs, scalars
+        self.stream = torch.cuda.Stream(scalars.device)
+        self.graph = self.out = None
+        self.rows = 0  # rows ``autodiff.ops.value`` evaluates a replay
+
+    def serves(self, key, state: TrainState) -> bool:
+        tensors = _state_tensors(state)
+        return key == self.key and len(tensors) == len(self.tensors) and all(
+            a is b for a, b in zip(tensors, self.tensors))
+
+    def warm_up(self, body):
+        """``body()`` run eagerly on the side stream; -> its result."""
+        cur = torch.cuda.current_stream(self.stream.device)
+        self.stream.wait_stream(cur)
+        with torch.cuda.stream(self.stream):
+            out = body()
+        cur.wait_stream(self.stream)
+        return out
+
+    def capture(self, body):
+        """Capture ``body()``; the work counter it advances is put back, as
+        each replay advances it."""
+        rows = autodiff_ops.value_rows
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph, stream=self.stream):
+            self.out = body()
+        self.rows, autodiff_ops.value_rows = autodiff_ops.value_rows - rows, rows
+
+    def replay(self):
+        self.graph.replay()
+        autodiff_ops.value_rows += self.rows
 
 
 def _flat(tensors) -> torch.Tensor:
@@ -163,6 +254,7 @@ class Trainer:
         self.device = sampler.device
         self.group = group if group is not None else single(sampler.device)
         self._vg_op, self._vgh_op = autograd_ops(spec)
+        self._graph = None  # the graphed path's _StepGraph
         self.chunk_seconds = []  # (lo, hi, stage, seconds) per chunk of the last run
         self.last_swap_epoch = None  # the epoch the last run swapped samplers at
         # None on one rank; "sharded" (each rank its own sub-batch) or
@@ -301,13 +393,18 @@ class Trainer:
         tensor (terms..., total) summed over the batches, then epoch_loss.
         The epoch is the span ``train.epoch`` of step id ``epoch``, each
         batch a ``train.step`` of ``train.draw``, ``train.loss``,
-        ``train.backward`` and ``train.adam`` (:mod:`..utils.timing`)."""
-        global surface_rows
+        ``train.backward`` and ``train.adam`` (:mod:`..utils.timing`).  On
+        the graphed path (module docstring) each ``train.step`` holds its
+        draw alone, and one ``train.replay`` after them the copies into the
+        graph's inputs and the replay."""
+        global surface_rows, eager_steps
         timing.set_step(epoch)
         with span("train.epoch"):
             lr = self.lr(stage, epoch)
-            names = TERM_NAMES[stage]
-            sums = torch.zeros(len(names) + 1, device=self.device)
+            if self._graphable(stage):
+                return self._graph_epoch(state, stage, gen, lr)
+            eager_steps += 1
+            sums = self._zero_sums(stage)
             for _ in range(self.cfg.batches_per_epoch):
                 with span("train.step"):
                     with span("train.draw"):
@@ -317,15 +414,82 @@ class Trainer:
                     with span("train.adam"):
                         state.opt_state = adam_update(state.params, grads, state.opt_state, lr)
                 sums += torch.cat([row, total[None]]).detach()
-            epoch_loss = sums[-1] / self.cfg.batches_per_epoch
-            # the JAX package's quirk, kept: the params chosen are those
-            # AFTER this epoch's updates, on the loss measured before them
-            is_best = epoch_loss < state.best_loss
-            state.best_loss = torch.where(is_best, epoch_loss, state.best_loss)
-            with torch.no_grad():
-                for new, old in zip(_leaves(state.params), _leaves(state.best_params)):
-                    old.copy_(torch.where(is_best, new, old))
-            return torch.cat([sums, epoch_loss[None]])
+            return self._epoch_end(state, sums)
+
+    def _zero_sums(self, stage):
+        return torch.zeros(len(TERM_NAMES[stage]) + 1, device=self.device)
+
+    def _epoch_end(self, state: TrainState, sums):
+        """The best loss and params, in place; -> the epoch's log row."""
+        epoch_loss = sums[-1] / self.cfg.batches_per_epoch
+        # the JAX package's quirk, kept: the params chosen are those
+        # AFTER this epoch's updates, on the loss measured before them
+        is_best = epoch_loss < state.best_loss
+        with torch.no_grad():
+            state.best_loss.copy_(torch.where(is_best, epoch_loss, state.best_loss))
+            for new, old in zip(_leaves(state.params), _leaves(state.best_params)):
+                old.copy_(torch.where(is_best, new, old))
+        return torch.cat([sums, epoch_loss[None]])
+
+    # --- the epoch as a CUDA graph --------------------------------------------
+
+    def _graphable(self, stage: str) -> bool:
+        """Whether the epoch runs on the graphed path: one CUDA device, no
+        process group, and a stage whose step counts nothing in Python at
+        call time (s1's kernels count their launches)."""
+        return (self.device.type == "cuda" and self.group.backend is None
+                and stage != "s1")
+
+    def _graph_body(self, stage, state: TrainState, inputs, scalars):
+        """The epoch after its draws, on the batches ``inputs`` with the Adam
+        rows ``scalars`` (:func:`adam_scalars`): what the graph captures.
+        -> the epoch's log row."""
+        sums = self._zero_sums(stage)
+        for k, batch in enumerate(inputs):
+            row, total, grads = self.batch_step(stage, state.params, *batch)
+            with span("train.adam"):
+                adam_apply(state.params, grads, state.opt_state.mu, state.opt_state.nu,
+                           scalars[k])
+            sums += torch.cat([row, total[None]]).detach()
+        return self._epoch_end(state, sums)
+
+    def _graph_epoch(self, state: TrainState, stage, gen, lr):
+        """One epoch on the graphed path: the eager draws, then their copies
+        into the graph's inputs and the graph (the module docstring)."""
+        global surface_rows, eager_steps, graph_captures, graph_replays
+        batches = []
+        for _ in range(self.cfg.batches_per_epoch):
+            with span("train.step"):
+                with span("train.draw"):
+                    batch = self.draw(gen)
+                surface_rows += batch[3]
+            batches.append(batch)
+        opt = state.opt_state
+        counts = range(opt.count + 1, opt.count + 1 + len(batches))
+        state.opt_state = AdamState(opt.count + len(batches), opt.mu, opt.nu)
+        key = (stage, torch.backends.cuda.matmul.allow_tf32,
+               tuple(tuple(t.shape for t in b[:3]) + tuple(b[3:]) for b in batches))
+        g = self._graph
+        if g is None or not g.serves(key, state):
+            # a new key: the step runs eagerly once, on the side stream that
+            # captures it at the next epoch
+            eager_steps += 1
+            inputs = [tuple(t.clone() for t in b[:3]) + tuple(b[3:]) for b in batches]
+            g = self._graph = _StepGraph(key, state, inputs,
+                                         adam_scalars(counts, lr, self.device))
+            return g.warm_up(lambda: self._graph_body(stage, state, g.inputs, g.scalars))
+        with span("train.replay"):
+            for dst, b in zip(g.inputs, batches):
+                for d, t in zip(dst[:3], b[:3]):
+                    d.copy_(t)
+            adam_scalars(counts, lr, self.device, out=g.scalars)
+            if g.graph is None:
+                g.capture(lambda: self._graph_body(stage, state, g.inputs, g.scalars))
+                graph_captures += 1
+            else:
+                graph_replays += 1
+            g.replay()
+        return g.out.clone()
 
     def chunk_edges(self, start_epoch: int, chunk_size: int):
         """(lo, hi) epoch ranges: chunks of up to ``chunk_size`` (or the
@@ -407,6 +571,7 @@ class Trainer:
                 callback(hi, state, logs)
                 self.callback_seconds += time.perf_counter() - t_cb
 
+        self._graph = None  # its memory pool goes with it
         keys = sorted({k for _, _, lg in all_logs for k in lg})
         losses = {k: np.full(self.cfg.num_epochs - start_epoch, np.nan) for k in keys}
         for lo, hi, lg in all_logs:

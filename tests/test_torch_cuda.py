@@ -642,3 +642,146 @@ def test_device_relaxation_matches_the_loop_on_the_cpu(monkeypatch):
     want = signs.copy()
     want[nz] = want_s[nz].astype(np.int8)
     assert np.array_equal(got[0], want)
+
+
+# The training epoch as a CUDA graph (train/loop.py): from one initial state
+# and one generator state, graphed epochs against the same epochs run
+# eagerly, on a 3x64 net and a batch of 3,000 drawn from a sphere's cloud.
+
+GRAPH_PCT = (1.0 / 3.0, 2.0 / 3.0)
+
+
+def _sphere_cloud(n=2000, seed=0):
+    rng = np.random.default_rng(seed)
+    nrm = rng.normal(size=(n, 3))
+    nrm /= np.linalg.norm(nrm, axis=1, keepdims=True)
+    return (0.5 * nrm).astype(np.float32), nrm.astype(np.float32)
+
+
+def _graph_trainer(stage, hidden=(64, 64, 64), batch=3000, oracle="table"):
+    from diffudf_tpu_torch.config import TrainConfig
+    from diffudf_tpu_torch.data.sampling import TrainingSampler
+    from diffudf_tpu_torch.train import loop
+
+    pts, nrm = _sphere_cloud()
+    make = (TrainingSampler.from_point_cloud if oracle == "table"
+            else TrainingSampler.from_point_cloud_bootstrap)
+    sampler = make(pts, nrm, batch, GRAPH_PCT, device="cuda")
+    cfg = TrainConfig(batch_size=batch, sampling_percentiles=GRAPH_PCT, num_epochs=3000,
+                      s1_epochs=2000, gt_mode="siren" if stage == "siren" else "tanh",
+                      lr_s2=1e-4)
+    return loop.Trainer(SirenSpec(hidden=hidden), sampler, cfg)
+
+
+class _BatchRecorder:
+    """A sampler that keeps a copy of every batch it hands out."""
+
+    def __init__(self, inner):
+        self.inner, self.batches = inner, []
+
+    def __getattr__(self, name):
+        return getattr(self.inner, name)
+
+    def sample(self, gen):
+        out = self.inner.sample(gen)
+        self.batches.append(tuple(t.clone() for t in out))
+        return out
+
+
+def _graph_counts():
+    from diffudf_tpu_torch.train import loop
+
+    return np.array([loop.graph_replays, loop.graph_captures, loop.eager_steps])
+
+
+def _state_leaves(state):
+    from diffudf_tpu_torch.train.loop import _leaves
+
+    return {"params": _leaves(state.params), "mu": _leaves(state.opt_state.mu),
+            "nu": _leaves(state.opt_state.nu), "best_params": _leaves(state.best_params),
+            "best_loss": [state.best_loss]}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stage", ["s2", "siren"])
+def test_graphed_epochs_match_eager_epochs(stage, monkeypatch):
+    """Five graphed epochs (eager on the side stream, capture, three
+    replays) against five eager ones from the same state and generator:
+    bit-identical batches; rows, params, Adam moments and best params within
+    float32 rounding (4 ulp of each tensor's largest element); rows of their
+    own; the counters and the value path's rows as the eager epochs count
+    them."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the graph captures CUDA work")
+    from diffudf_tpu_torch.autodiff import ops
+
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    runs = {}
+    for graphed in (True, False):
+        trainer = _graph_trainer(stage)
+        if not graphed:
+            monkeypatch.setattr(trainer, "_graphable", lambda stage: False)
+        trainer.sampler = rec = _BatchRecorder(trainer.sampler)
+        state = trainer.init_state()
+        gen = torch.Generator(device="cuda").manual_seed(2**31 + 77)
+        counts, rows0 = _graph_counts(), ops.value_rows
+        rows = [trainer.epoch(state, stage, 2000 + e, gen) for e in range(5)]
+        torch.cuda.synchronize()
+        runs[graphed] = dict(rows=rows, state=_state_leaves(state), batches=rec.batches,
+                             counts=_graph_counts() - counts, value_rows=ops.value_rows - rows0,
+                             count=state.opt_state.count)
+    g, e = runs[True], runs[False]
+    assert g["counts"].tolist() == [3, 1, 1] and e["counts"].tolist() == [0, 0, 5]
+    assert g["value_rows"] == e["value_rows"] == (5 * 3000 if stage == "s2" else 0)
+    assert g["count"] == e["count"] == 5
+    for a, b in zip(g["batches"], e["batches"]):
+        for x, y in zip(a, b):
+            assert torch.equal(x, y)
+    assert len({r.data_ptr() for r in g["rows"]}) == 5
+
+    def close(a, b, what):
+        a, b = a.detach(), b.detach()
+        ulp = 4 * torch.finfo(torch.float32).eps * float(b.abs().max().clamp(min=1e-30))
+        err = float((a - b).abs().max())
+        print(f"{stage} {what}: max |graphed - eager| {err!r}, limit {ulp!r}")
+        assert err <= ulp, what
+
+    close(torch.stack(g["rows"]), torch.stack(e["rows"]), "rows")
+    for name in g["state"]:
+        for i, (a, b) in enumerate(zip(g["state"][name], e["state"][name])):
+            close(a, b, f"{name}[{i}]")
+
+
+@pytest.mark.cuda
+def test_graph_is_captured_again_for_a_new_state_only():
+    """A sampler swap at the same batch shape (bootstrap to table, as the
+    overlapped oracle build hands over) replays the graph captured before
+    it; a new TrainState runs eagerly once and is captured again; s1 stays
+    eager on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the graph captures CUDA work")
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    trainer = _graph_trainer("s2", oracle="bootstrap")
+    state = trainer.init_state()
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    counts = _graph_counts()
+    for e in range(3):
+        trainer.epoch(state, "s2", 2000 + e, gen)
+    assert (_graph_counts() - counts).tolist() == [1, 1, 1]
+    graph = trainer._graph
+    trainer.sampler = _graph_trainer("s2").sampler
+    trainer.epoch(state, "s2", 2003, gen)
+    assert (_graph_counts() - counts).tolist() == [2, 1, 1] and trainer._graph is graph
+    fresh = trainer.init_state()
+    for e in range(2):
+        trainer.epoch(fresh, "s2", 2000 + e, gen)
+    assert (_graph_counts() - counts).tolist() == [2, 2, 2] and trainer._graph is not graph
+    torch.cuda.synchronize()
+    assert torch.isfinite(fresh.best_loss) and fresh.opt_state.count == 2
+
+    plain = _graph_trainer("s1", hidden=(48, 48))  # not a kernel width: no nvcc build
+    s1_state = plain.init_state()
+    counts = _graph_counts()
+    for e in range(3):
+        plain.epoch(s1_state, "s1", 1000 + e, gen)
+    assert (_graph_counts() - counts).tolist() == [0, 0, 3] and plain._graph is None

@@ -31,7 +31,11 @@ from diffudf_tpu_torch.ops.vg import vg_op
 from diffudf_tpu_torch.ops.vgh import vgh_op
 from diffudf_tpu_torch.train import checkpoint as tckpt
 from diffudf_tpu_torch.train import losses as tl
-from diffudf_tpu_torch.train.loop import adam_update, key_from_seed
+from diffudf_tpu_torch.autodiff import ops as tops
+from diffudf_tpu_torch.config import TrainConfig
+from diffudf_tpu_torch.data.sampling import TrainingSampler
+from diffudf_tpu_torch.train import loop as tloop
+from diffudf_tpu_torch.train.loop import adam_apply, adam_scalars, adam_update, key_from_seed
 from diffudf_tpu_torch.train.schedule import lr_for_epoch
 
 torch.set_num_threads(2)
@@ -164,6 +168,107 @@ def test_adam_step_matches_optax():
     for a, b in zip(tp, jp):
         for k in ("w", "b"):
             np.testing.assert_allclose(a[k].numpy(), np.asarray(b[k]), rtol=1e-6, atol=1e-9)
+
+
+def test_device_scalar_adam_matches_optax():
+    """The Adam of the graphed epoch: ``adam_apply`` reading its learning
+    rate and bias corrections from one device buffer that ``adam_scalars``
+    refills before each step, as a replay reads them, against optax with
+    the learning rate of each step, relative 1e-6."""
+    rng = np.random.default_rng(11)
+    np_params = _params(3)
+    lrs = (1e-3, 5e-4, 2e-4)
+    grads = [[{k: rng.normal(size=v.shape).astype(np.float32) for k, v in layer.items()}
+              for layer in np_params] for _ in lrs]
+    opt = optax.scale_by_adam(b1=0.9, b2=0.999, eps=1e-8)
+
+    @jax.jit
+    def step(p, s, g, lr):
+        u, s = opt.update(g, s, p)
+        return jax.tree.map(lambda p, u: p - lr * u, p, u), s
+
+    jp = [{k: jnp.asarray(v) for k, v in layer.items()} for layer in np_params]
+    js = opt.init(jp)
+    for g, lr in zip(grads, lrs):
+        jp, js = step(jp, js, [{k: jnp.asarray(v) for k, v in layer.items()} for layer in g],
+                      jnp.float32(lr))
+
+    tp = [{k: torch.tensor(v) for k, v in layer.items()} for layer in np_params]
+    mu = [{k: torch.zeros_like(v) for k, v in layer.items()} for layer in tp]
+    nu = [{k: torch.zeros_like(v) for k, v in layer.items()} for layer in tp]
+    scalars = adam_scalars([1], lrs[0], "cpu")
+    for count, (g, lr) in enumerate(zip(grads, lrs), start=1):
+        assert adam_scalars([count], lr, "cpu", out=scalars) is scalars
+        adam_apply(tp, [torch.tensor(layer[k]) for layer in g for k in ("w", "b")], mu, nu,
+                   scalars[0])
+    np.testing.assert_allclose(scalars[0].numpy(), [np.float32(lrs[-1]), 1 - np.float32(0.9) ** 3,
+                                                    1 - np.float32(0.999) ** 3], rtol=0)
+    for a, b in zip(tp, jp):
+        for k in ("w", "b"):
+            np.testing.assert_allclose(a[k].numpy(), np.asarray(b[k]), rtol=1e-6, atol=1e-9)
+    for a, b in zip(mu + nu, list(js.mu) + list(js.nu)):
+        for k in ("w", "b"):
+            np.testing.assert_allclose(a[k].numpy(), np.asarray(b[k]), rtol=1e-6, atol=1e-12)
+
+
+PCT = (1.0 / 3.0, 2.0 / 3.0)
+
+
+def _cpu_trainer(gt_mode="tanh"):
+    rng = np.random.default_rng(0)
+    cloud = rng.uniform(-0.5, 0.5, (64, 3)).astype(np.float32)
+    normals = np.tile(np.float32([0.0, 0.0, 1.0]), (64, 1))
+    sampler = TrainingSampler.from_point_cloud_bootstrap(cloud, normals, 30, PCT, device="cpu")
+    cfg = TrainConfig(batch_size=30, sampling_percentiles=PCT, num_epochs=8, s1_epochs=2,
+                      gt_mode=gt_mode)
+    trainer = tloop.Trainer(SirenSpec(hidden=(32, 32)), sampler, cfg)
+    return trainer, trainer.init_state(), torch.Generator().manual_seed(3)
+
+
+def _graph_counts():
+    return tloop.graph_replays, tloop.graph_captures, tloop.eager_steps
+
+
+@pytest.mark.parametrize("stage", ["s1", "s2", "siren"])
+def test_cpu_epochs_stay_eager(stage):
+    """On the CPU every epoch takes the eager step: ``eager_steps`` counts
+    each, and no graph is captured or replayed."""
+    trainer, state, gen = _cpu_trainer("siren" if stage == "siren" else "tanh")
+    replays, captures, eager = _graph_counts()
+    for e in range(4):
+        trainer.epoch(state, stage, e, gen)
+    assert _graph_counts() == (replays, captures, eager + 4)
+    assert trainer._graph is None and state.opt_state.count == 4
+
+
+def test_epoch_rows_do_not_alias():
+    """The rows ``epoch`` returns are tensors of their own: stacked after
+    several epochs, each still holds the values it had when returned, and
+    the best loss is the state's tensor, updated in place."""
+    trainer, state, gen = _cpu_trainer()
+    best = state.best_loss
+    rows, seen = [], []
+    for e in range(5):
+        rows.append(trainer.epoch(state, "s2", 2 + e, gen))
+        seen.append(rows[-1].clone())
+    assert len({r.data_ptr() for r in rows}) == len(rows)
+    assert torch.equal(torch.stack(rows), torch.stack(seen))
+    assert state.best_loss is best
+    assert float(best) == float(torch.stack(seen)[:, -1].min())
+
+
+@pytest.mark.parametrize("stage", ["s1", "s2"])
+def test_epoch_counts_the_rows_of_its_batch(stage):
+    """Each epoch advances ``train.loop.surface_rows`` by its batch's
+    on-surface rows and ``autodiff.ops.value_rows`` by the rows its loss
+    evaluates on the value path: every row in s2, none in s1."""
+    trainer, state, gen = _cpu_trainer()
+    sz = trainer.sampler.sizes
+    for e in range(3):
+        rows, surface = tops.value_rows, tloop.surface_rows
+        trainer.epoch(state, stage, e, gen)
+        assert tloop.surface_rows - surface == sz.on_surface
+        assert tops.value_rows - rows == (sz.total if stage == "s2" else 0)
 
 
 def test_train_state_files_cross_load(tmp_path):
