@@ -15,7 +15,8 @@ On a net the kernels take (``ops.evaluate.autograd_ops``, by
 multiple of 32, at most 256) the s1 loss runs the fused ops: K1 + K2 (``ops.vgh.vgh_op``) on the on-surface
 rows and K3a + K3b (``ops.vg.vg_op``) on the others; on a CPU tensor those
 ops run their plain versions.  Any other net takes the plain Taylor-mode
-path, as the JAX package sends it to XLA.
+path, as the JAX package sends it to XLA.  The s2 loss evaluates the value
+path on the leading on-surface rows alone, the only rows it reads.
 
 Optimizer: Adam with torch-default hyperparameters (β=(0.9, 0.999),
 ε=1e-8), optax's ``scale_by_adam`` written out, with the learning rate
@@ -318,7 +319,8 @@ class Trainer:
         if stage == "s2":
             group = self.group if self.group.backend is not None else None
             return loss_s2(params, self.spec, points, normals, sdf,
-                           cfg.loss_s2_weights, cfg.alpha, group=group)
+                           cfg.loss_s2_weights, cfg.alpha, group=group,
+                           n_surface=n_surface)
         if stage == "siren":
             return loss_siren(params, self.spec, points, normals, sdf, cfg.loss_weights)
         raise ValueError(stage)

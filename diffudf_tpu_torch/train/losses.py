@@ -118,15 +118,24 @@ def loss_s1(params, spec, points, gt_normals, gt_sdf, weights, alpha,
     return terms
 
 
-def loss_s2(params, spec, points, gt_normals, gt_sdf, weights, alpha, group=None):
+def loss_s2(params, spec, points, gt_normals, gt_sdf, weights, alpha, group=None,
+            n_surface=None):
     """Stage-2 polish: |mean| and std of the on-surface field values, through
     the exact ``torch.sin`` value path (``autodiff.ops.value``).
+
+    ``n_surface``: count of leading on-surface rows (the sampler's batch
+    layout).  When given, only those rows are evaluated: the loss reads no
+    other row, so the terms and their gradient are those of the mask over
+    the whole batch, and a row past them whose distance rounds to 0 stays
+    off the surface.  It may be 0 (a data-parallel rank's block).
 
     ``group`` (a :class:`..parallel.mesh.DataGroup`): each rank holds rows
     of one batch, and the mean and variance are those of the whole batch's
     on-surface set: ``n_on`` and ``sum_on``, then ``sse``, are summed over
     the ranks (a local variance around a local mean does not average)."""
     w0, w1 = (float(w) for w in weights[:2])
+    if n_surface is not None:
+        points, gt_sdf = points[:n_surface], gt_sdf[:n_surface]
     udf = gt_sdf[:, 0]
     on_surf = udf == 0
     f = value(params, spec, points)

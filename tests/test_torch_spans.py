@@ -196,9 +196,9 @@ def test_work_counters_advance_by_the_batch(stage):
     for e in range(3):
         trainer.epoch(state, stage, e, gen)
     assert loop.surface_rows - surface == 3 * sz.on_surface
-    # s2's loss evaluates the value path on every row of the batch; s1
+    # s2's loss evaluates the value path on the batch's surface rows; s1
     # takes the derivative paths, not ``value``
-    assert ops.value_rows - rows == (3 * sz.total if stage == "s2" else 0)
+    assert ops.value_rows - rows == (3 * sz.on_surface if stage == "s2" else 0)
 
 
 def test_value_counts_every_row_of_a_batched_input():

@@ -107,23 +107,72 @@ def test_loss_s1_split_path_matches_jax():
         deriv_dtype=None, n_surface=N_ON), np_params)
 
 
-@pytest.mark.parametrize("which", ["s2", "siren"])
+@pytest.mark.parametrize("which", ["s2", "s2_layout", "siren"])
 def test_loss_s2_and_siren_match_jax(which):
+    """``s2_layout``: the port evaluates the leading surface rows alone
+    (``n_surface``), JAX masks every row of a batch whose zeros are only
+    those rows."""
     pts, nrm, sdf = _batch(seed=3)
+    assert not (sdf[N_ON:] == 0).any()
     np_params = _params(4)
     spec, jspec = SirenSpec(hidden=HIDDEN), JaxSpec(hidden=HIDDEN)
     tp = _torch_leaves(np_params)
     args = (torch.from_numpy(pts), torch.from_numpy(nrm), torch.from_numpy(sdf))
     jargs = (jnp.asarray(pts), jnp.asarray(nrm), jnp.asarray(sdf))
-    if which == "s2":
+    if which.startswith("s2"):
         w = (1e5, 1e5)
-        t_terms = tl.loss_s2(tp, spec, *args, w, 10.0)
+        kw = {"n_surface": N_ON} if which == "s2_layout" else {}
+        t_terms = tl.loss_s2(tp, spec, *args, w, 10.0, **kw)
         j_fn = lambda p: jl.loss_s2(p, jspec, *jargs, w, 10.0)  # noqa: E731
     else:
         w = (3e3, 1e2, 1e2, 5e1)
         t_terms = tl.loss_siren(tp, spec, *args, w)
         j_fn = lambda p: jl.loss_siren(p, jspec, *jargs, w, deriv_dtype=None)  # noqa: E731
     _compare(t_terms, tp, j_fn, np_params)
+
+
+@pytest.mark.parametrize("planted", [False, True])
+def test_loss_s2_layout_path_matches_mask_path(planted):
+    """On a [surface | far | near] batch from the port's sampler,
+    ``loss_s2(..., n_surface=)`` evaluates the surface rows alone and gives
+    the terms of the mask over every row (relative 1e-6) and the gradient of
+    their sum.  ``planted``: a far row whose distance reads exactly 0.0 (as
+    a mesh oracle can round one): the layout path leaves it out, as the
+    mask of the true distances does, where the mask of the read ones takes
+    it in."""
+    rng = np.random.default_rng(5)
+    on = rng.normal(size=(512, 3))
+    on /= np.linalg.norm(on, axis=1, keepdims=True)
+    sampler = TrainingSampler.from_point_cloud_bootstrap(
+        (0.6 * on).astype(np.float32), on.astype(np.float32), 3000, PCT, device="cpu")
+    pts, nrm, sdf = sampler.sample(torch.Generator().manual_seed(2**31 + 5))
+    n_on = sampler.sizes.on_surface
+    assert (sdf[:n_on] == 0).all() and not (sdf[n_on:] == 0).any()
+    read = sdf.clone()
+    if planted:
+        read[n_on] = 0.0
+    spec = SirenSpec(hidden=HIDDEN)
+
+    def run(gt_sdf, **kw):
+        tp = _torch_leaves(_params(6))
+        terms = tl.loss_s2(tp, spec, pts, nrm, gt_sdf, (1e5, 1e5), 10.0, **kw)
+        leaves = [t for layer in tp for t in layer.values()]
+        return terms, torch.autograd.grad(sum(terms.values()), leaves)
+
+    rows = tops.value_rows
+    got, got_grads = run(read, n_surface=n_on)
+    assert tops.value_rows - rows == n_on
+    want, want_grads = run(sdf)
+    for k in want:
+        assert float(got[k].detach()) == pytest.approx(float(want[k].detach()), rel=1e-6), k
+    # each weight gradient sums its rows' products; the GEMMs block 1,000
+    # and 3,000 rows differently, which moves the sum by a few ulp of its
+    # largest element (at most 7.9e-7 of it over six seeds): 1e-5 of it
+    for a, b in zip(got_grads, want_grads):
+        assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
+    if planted:
+        misread, _ = run(read)
+        assert float(misread["std_on_surf"].detach()) != float(want["std_on_surf"].detach())
 
 
 def test_lr_schedule_matches_jax_over_the_recipe():
@@ -261,14 +310,14 @@ def test_epoch_rows_do_not_alias():
 def test_epoch_counts_the_rows_of_its_batch(stage):
     """Each epoch advances ``train.loop.surface_rows`` by its batch's
     on-surface rows and ``autodiff.ops.value_rows`` by the rows its loss
-    evaluates on the value path: every row in s2, none in s1."""
+    evaluates on the value path: the surface rows in s2, none in s1."""
     trainer, state, gen = _cpu_trainer()
     sz = trainer.sampler.sizes
     for e in range(3):
         rows, surface = tops.value_rows, tloop.surface_rows
         trainer.epoch(state, stage, e, gen)
         assert tloop.surface_rows - surface == sz.on_surface
-        assert tops.value_rows - rows == (sz.total if stage == "s2" else 0)
+        assert tops.value_rows - rows == (sz.on_surface if stage == "s2" else 0)
 
 
 def test_train_state_files_cross_load(tmp_path):
