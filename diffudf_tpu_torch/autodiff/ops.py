@@ -21,9 +21,6 @@ import torch
 
 from ..fields.siren import SirenSpec, siren_apply
 
-# rows :func:`value` evaluated since the count was last set to 0
-value_rows = 0
-
 # upper-triangle index pairs, row-major: (0,0),(0,1),(0,2),(1,1),(1,2),(2,2)
 _TRI_I = (0, 0, 0, 1, 1, 2)
 _TRI_J = (0, 1, 2, 1, 2, 2)
@@ -52,10 +49,8 @@ def value(params, spec: SirenSpec, x: torch.Tensor, compute_dtype=None) -> torch
     to bf16, and the sums, biases and the exact ``torch.sin`` stay float32.
     The operands are rounded and multiplied in float32 — products of bf16
     values are exact there — rather than by a bf16 ``torch.matmul``, which
-    would round its output to bf16.  Adds the rows to ``value_rows``.
+    would round its output to bf16.
     """
-    global value_rows
-    value_rows += x.shape[:-1].numel()
     if compute_dtype is None:
         return siren_apply(params, spec, x)[..., 0]
 

@@ -430,23 +430,6 @@ def build_candidate_grid(tri_verts, centroids=None, radii=None, g: int = CAND_GR
     return cand.astype(np.int32)
 
 
-def point_triangle_distance_cells(queries: torch.Tensor, tri_verts: torch.Tensor,
-                                  cand: torch.Tensor, g: int = CAND_GRID_G,
-                                  lo: float = CAND_GRID_LO, hi: float = CAND_GRID_HI):
-    """Exact-on-candidates unsigned distance using the candidate grid
-    (the ``"indices"`` layout): queries (Q, 3), cand (g³, k) from
-    :func:`build_candidate_grid` -> (Q,).  Near-exact: the true nearest
-    triangle is among a cell's k candidates whenever the k-th lower bound
-    from the cell center exceeds the true distance by the cell
-    half-diagonal."""
-    q = queries.shape[0]
-    k = cand.shape[1]
-    ids = cand[_cell_rows(queries, g, lo, hi)].to(torch.int64)  # (Q, k)
-    tv = tri_verts[ids.reshape(-1)].reshape(q, k, 3, 3)
-    d2 = _closest_point_sq_dist(queries[:, None, :], tv[:, :, 0], tv[:, :, 1], tv[:, :, 2])
-    return torch.sqrt(torch.clamp(d2.min(1).values, min=0.0))
-
-
 def build_triangle_table(tri_verts: torch.Tensor, cand) -> torch.Tensor:
     """The candidate grid as per-cell vertex *coordinates*: (T, 3, 3)
     triangles + (g³, k) candidate indices -> (g³, k·9) float32 rows on the
@@ -463,8 +446,10 @@ def point_triangle_distance_table(queries: torch.Tensor, table: torch.Tensor,
                                   hi: float = CAND_GRID_HI, tile: int = 32768):
     """Exact-on-candidates unsigned mesh distance via the coordinate table:
     queries (Q, 3), table (g³, k·9) from :func:`build_triangle_table` ->
-    (Q,).  The candidate sets of :func:`point_triangle_distance_cells`, so
-    the same values; ``tile`` queries at a time (a training batch is one
+    (Q,).  Near-exact: the true nearest triangle is among a cell's k
+    candidates (:func:`build_candidate_grid`) whenever the k-th lower bound
+    from the cell center exceeds the true distance by the cell
+    half-diagonal.  ``tile`` queries at a time (a training batch is one
     tile)."""
     k = table.shape[1] // 9
     out = []

@@ -35,7 +35,6 @@ from .mesh_distance import (
     point_cloud_distance,
     point_cloud_distance_cells,
     point_triangle_distance_bootstrap,
-    point_triangle_distance_cells,
     point_triangle_distance_table,
 )
 
@@ -90,10 +89,9 @@ class TrainingSampler:
     """Device-resident sampler; ``sample(gen)`` draws one batch.
 
     The tensors that are set pick the oracle: ``tri_table`` (the coordinate
-    table), ``tri_verts`` + ``tri_candidates`` (the index grid) or
-    ``tri_verts`` alone (the exact bootstrap sweep) for a mesh;
-    ``pc_candidates`` (the point table) or none of these (the exact sweep)
-    for a cloud."""
+    table of ``build_candidate_grid``'s candidate sets) or ``tri_verts``
+    (the exact bootstrap sweep) for a mesh; ``pc_candidates`` (the point
+    table) or neither (the exact sweep) for a cloud."""
 
     surface_points: torch.Tensor  # (N, 3) f32
     surface_normals: torch.Tensor  # (N, 3) f32
@@ -101,7 +99,6 @@ class TrainingSampler:
     pc_candidates: torch.Tensor | None = None  # (G³, K, 3) per-cell point table
     stddev: float = 0.01
     tri_verts: torch.Tensor | None = None  # (T, 3, 3)
-    tri_candidates: torch.Tensor | None = None  # (G³, K) per-cell candidates
     tri_table: torch.Tensor | None = None  # (G³, K·9) per-cell triangle coords
 
     @classmethod
@@ -143,30 +140,22 @@ class TrainingSampler:
 
     @classmethod
     def from_mesh(cls, points, normals, tri_verts, batch_size, percentiles, stddev=0.01,
-                  oracle_layout: str = "table", cache_path: str | None = None, device="cuda",
-                  cache_wait_s=0.0):
-        """``oracle_layout="table"`` (default) materialises the candidate
-        grid as per-cell triangle *coordinates* (``build_triangle_table``):
-        the per-step oracle is one contiguous row gather a query.
-        ``"indices"`` keeps the index grid and the triangles (about 47 MB in
-        place of 382) and gathers k triangles a query.
+                  cache_path: str | None = None, device="cuda", cache_wait_s=0.0):
+        """The candidate grid as per-cell triangle *coordinates*
+        (``build_triangle_table``): the per-step oracle is one contiguous
+        row gather a query.
 
         ``cache_path`` (optional) caches the one-shot candidate-grid build
         on disk, keyed by the triangle bytes (:mod:`.oracle_cache`;
         ``cache_wait_s`` > 0: another process writes it)."""
         from .oracle_cache import cached_candidate_grid
 
-        if oracle_layout not in ("table", "indices"):
-            raise ValueError(f"unknown oracle_layout: {oracle_layout!r}")
         real = np.asarray(tri_verts, np.float32)
         cand = cached_candidate_grid(real, cache_path, device=device, wait_s=cache_wait_s)
-        tris = torch.as_tensor(real, device=device)
+        table = build_triangle_table(torch.as_tensor(real, device=device), cand)
         pts, nrm = _device_points(points, normals, device)
-        sizes = BatchSizes.from_config(batch_size, percentiles)
-        if oracle_layout == "table":
-            return cls(pts, nrm, sizes, stddev=stddev,
-                       tri_table=build_triangle_table(tris, cand))
-        return cls(pts, nrm, sizes, stddev=stddev, tri_verts=tris, tri_candidates=cand)
+        return cls(pts, nrm, BatchSizes.from_config(batch_size, percentiles), stddev=stddev,
+                   tri_table=table)
 
     @property
     def device(self) -> torch.device:
@@ -223,8 +212,6 @@ class TrainingSampler:
                 q = torch.cat([far_pts, near_pts], dim=0)
                 if self.tri_table is not None:
                     both = point_triangle_distance_table(q, self.tri_table)
-                elif self.tri_candidates is not None:
-                    both = point_triangle_distance_cells(q, self.tri_verts, self.tri_candidates)
                 else:
                     both = point_triangle_distance_bootstrap(q, self.tri_verts)
                 far_sdf, near_sdf = both[:sz.far], both[sz.far:]

@@ -32,9 +32,10 @@ graph holds the loss, ``torch.autograd.grad``, the Adam updates, the
 epoch's sums and the best-loss / best-params update, all in place on the
 state.  The first epoch of a new key (stage, batch shapes,
 ``batches_per_epoch``, the state's tensors) runs the same step eagerly on a
-side stream, the next captures it, and later epochs replay it.  CPU
-tensors, a process group and s1 (whose kernels count their launches in
-Python) take the eager step.
+side stream, the next captures it, and later epochs replay it.  A
+captured body runs its Python once, at capture, so it counts nothing in
+Python: s1, whose kernels count their launches at call time, takes the
+eager step, as do CPU tensors and a process group.
 
 Random keys: the state carries a (2,) uint32 key.  Each chunk seeds the
 sampling generator from it and replaces it by the next key of a fixed host
@@ -76,7 +77,6 @@ import warnings
 import numpy as np
 import torch
 
-from ..autodiff import ops as autodiff_ops
 from ..config import TrainConfig
 from ..data.sampling import TrainingSampler
 from ..fields.siren import SirenSpec, init_siren
@@ -90,9 +90,6 @@ from .schedule import lr_for_epoch, lr_for_epoch_siren
 
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
 
-# on-surface rows of the batches ``Trainer.epoch`` drew, since the count was
-# last set to 0; over ``autodiff.ops.value_rows`` the value path's useful share
-surface_rows = 0
 # epochs ``Trainer.epoch`` ran by replaying a captured CUDA graph, by
 # capturing one (and replaying it), and eagerly, since the counts were last
 # set to 0: each epoch adds 1 to one of them
@@ -208,7 +205,6 @@ class _StepGraph:
         self.inputs, self.scalars = inputs, scalars
         self.stream = torch.cuda.Stream(scalars.device)
         self.graph = self.out = None
-        self.rows = 0  # rows ``autodiff.ops.value`` evaluates a replay
 
     def serves(self, key, state: TrainState) -> bool:
         tensors = _state_tensors(state)
@@ -225,17 +221,10 @@ class _StepGraph:
         return out
 
     def capture(self, body):
-        """Capture ``body()``; the work counter it advances is put back, as
-        each replay advances it."""
-        rows = autodiff_ops.value_rows
+        """Capture ``body()`` on the side stream."""
         self.graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(self.graph, stream=self.stream):
             self.out = body()
-        self.rows, autodiff_ops.value_rows = autodiff_ops.value_rows - rows, rows
-
-    def replay(self):
-        self.graph.replay()
-        autodiff_ops.value_rows += self.rows
 
 
 def _flat(tensors) -> torch.Tensor:
@@ -399,7 +388,7 @@ class Trainer:
         the graphed path (module docstring) each ``train.step`` holds its
         draw alone, and one ``train.replay`` after them the copies into the
         graph's inputs and the replay."""
-        global surface_rows, eager_steps
+        global eager_steps
         timing.set_step(epoch)
         with span("train.epoch"):
             lr = self.lr(stage, epoch)
@@ -411,7 +400,6 @@ class Trainer:
                 with span("train.step"):
                     with span("train.draw"):
                         batch = self.draw(gen)
-                    surface_rows += batch[3]
                     row, total, grads = self.batch_step(stage, state.params, *batch)
                     with span("train.adam"):
                         state.opt_state = adam_update(state.params, grads, state.opt_state, lr)
@@ -437,8 +425,8 @@ class Trainer:
 
     def _graphable(self, stage: str) -> bool:
         """Whether the epoch runs on the graphed path: one CUDA device, no
-        process group, and a stage whose step counts nothing in Python at
-        call time (s1's kernels count their launches)."""
+        process group, and not s1, whose kernels count their launches in
+        Python (a captured body counts nothing there; module docstring)."""
         return (self.device.type == "cuda" and self.group.backend is None
                 and stage != "s1")
 
@@ -458,13 +446,12 @@ class Trainer:
     def _graph_epoch(self, state: TrainState, stage, gen, lr):
         """One epoch on the graphed path: the eager draws, then their copies
         into the graph's inputs and the graph (the module docstring)."""
-        global surface_rows, eager_steps, graph_captures, graph_replays
+        global eager_steps, graph_captures, graph_replays
         batches = []
         for _ in range(self.cfg.batches_per_epoch):
             with span("train.step"):
                 with span("train.draw"):
                     batch = self.draw(gen)
-                surface_rows += batch[3]
             batches.append(batch)
         opt = state.opt_state
         counts = range(opt.count + 1, opt.count + 1 + len(batches))
@@ -490,7 +477,7 @@ class Trainer:
                 graph_captures += 1
             else:
                 graph_replays += 1
-            g.replay()
+            g.graph.replay()
         return g.out.clone()
 
     def chunk_edges(self, start_epoch: int, chunk_size: int):

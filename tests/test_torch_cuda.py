@@ -709,12 +709,9 @@ def test_graphed_epochs_match_eager_epochs(stage, monkeypatch):
     replays) against five eager ones from the same state and generator:
     bit-identical batches; rows, params, Adam moments and best params within
     float32 rounding (4 ulp of each tensor's largest element); rows of their
-    own; the counters and the value path's rows (the surface rows in s2) as
-    the eager epochs count them."""
+    own; the counters as the eager and graphed paths count them."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the graph captures CUDA work")
-    from diffudf_tpu_torch.autodiff import ops
-
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
     runs = {}
     for graphed in (True, False):
@@ -724,15 +721,13 @@ def test_graphed_epochs_match_eager_epochs(stage, monkeypatch):
         trainer.sampler = rec = _BatchRecorder(trainer.sampler)
         state = trainer.init_state()
         gen = torch.Generator(device="cuda").manual_seed(2**31 + 77)
-        counts, rows0 = _graph_counts(), ops.value_rows
+        counts = _graph_counts()
         rows = [trainer.epoch(state, stage, 2000 + e, gen) for e in range(5)]
         torch.cuda.synchronize()
         runs[graphed] = dict(rows=rows, state=_state_leaves(state), batches=rec.batches,
-                             counts=_graph_counts() - counts, value_rows=ops.value_rows - rows0,
-                             count=state.opt_state.count)
+                             counts=_graph_counts() - counts, count=state.opt_state.count)
     g, e = runs[True], runs[False]
     assert g["counts"].tolist() == [3, 1, 1] and e["counts"].tolist() == [0, 0, 5]
-    assert g["value_rows"] == e["value_rows"] == (5 * 1000 if stage == "s2" else 0)
     assert g["count"] == e["count"] == 5
     for a, b in zip(g["batches"], e["batches"]):
         for x, y in zip(a, b):

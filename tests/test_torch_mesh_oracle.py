@@ -119,7 +119,7 @@ def test_candidate_grid_matches_jax(shape, torus):
     np.testing.assert_array_equal(np.sort(got, axis=1), np.sort(want, axis=1))
 
 
-@pytest.mark.parametrize("oracle", ["table", "cells", "pruned", "bootstrap"])
+@pytest.mark.parametrize("oracle", ["table", "pruned", "bootstrap"])
 def test_mesh_oracles_match_jax_and_brute_force(oracle, torus):
     """Each training oracle against the JAX function on the same inputs and
     against the brute sweep.  The bootstrap runs in blocks of 100 queries x
@@ -135,9 +135,6 @@ def test_mesh_oracles_match_jax_and_brute_force(oracle, torus):
         got = tmd.point_triangle_distance_table(tq, table, g=G).numpy()
         want = jmd.point_triangle_distance_table(jq, jmd.build_triangle_table(jt, jnp.asarray(cand)),
                                                  g=G)
-    elif oracle == "cells":
-        got = tmd.point_triangle_distance_cells(tq, tt, torch.from_numpy(cand), g=G).numpy()
-        want = jmd.point_triangle_distance_cells(jq, jt, jnp.asarray(cand), g=G)
     elif oracle == "pruned":
         got = tmd.point_triangle_distance_pruned(tq, tt, tile=256).numpy()
         want = jmd.point_triangle_distance_pruned(jq, jt, tile=256)
@@ -203,18 +200,15 @@ def cube():
 
 
 def test_mesh_sampler_rows_and_exact_unsigned_gt(cube):
-    """Every mesh oracle (table, indices, bootstrap) draws the same batch
+    """Both mesh oracles (table, bootstrap) draw the same batch
     from one generator state, in the reference's row layout, with the exact
     unsigned distance to the cube's surface on the far and near rows."""
     pts, nrm, tris = cube
     args = (pts, nrm, tris, 3000, (0.333, 0.666))
     samplers = {
         "table": TrainingSampler.from_mesh(*args, device="cpu"),
-        "indices": TrainingSampler.from_mesh(*args, oracle_layout="indices", device="cpu"),
         "bootstrap": TrainingSampler.from_mesh_bootstrap(*args, device="cpu"),
     }
-    with pytest.raises(ValueError, match="oracle_layout"):
-        TrainingSampler.from_mesh(*args, oracle_layout="bogus", device="cpu")
     batches = {k: s.sample(torch.Generator().manual_seed(3)) for k, s in samplers.items()}
     sz = samplers["table"].sizes
     assert sz == BatchSizes(999, 999, 999)

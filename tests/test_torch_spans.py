@@ -9,7 +9,6 @@ import numpy as np
 import pytest
 import torch
 
-from diffudf_tpu_torch.autodiff import ops
 from diffudf_tpu_torch.config import TrainConfig
 from diffudf_tpu_torch.data.sampling import TrainingSampler
 from diffudf_tpu_torch.fields.siren import SirenSpec
@@ -173,6 +172,7 @@ DRAW = ("train.draw", [("sample.draw", []), ("sample.oracle", [])])
 @pytest.mark.parametrize("stage, loss", [
     ("s2", []),
     ("s1", [("loss.derivs", []), ("loss.eig", []), ("loss.terms", [])]),
+    ("siren", []),
 ])
 def test_epoch_spans(stage, loss):
     trainer, state, gen = _trainer()
@@ -186,31 +186,6 @@ def test_epoch_spans(stage, loss):
     assert s["train.epoch"]["self_ns"] >= 0 and s["train.step"]["calls"] == 1
     assert s["train.epoch"]["total_ns"] >= sum(
         s[n]["total_ns"] for n in ("train.draw", "train.loss", "train.backward", "train.adam"))
-
-
-@pytest.mark.parametrize("stage", ["s1", "s2"])
-def test_work_counters_advance_by_the_batch(stage):
-    trainer, state, gen = _trainer()
-    sz = trainer.sampler.sizes
-    rows, surface = ops.value_rows, loop.surface_rows
-    for e in range(3):
-        trainer.epoch(state, stage, e, gen)
-    assert loop.surface_rows - surface == 3 * sz.on_surface
-    # s2's loss evaluates the value path on the batch's surface rows; s1
-    # takes the derivative paths, not ``value``
-    assert ops.value_rows - rows == (3 * sz.on_surface if stage == "s2" else 0)
-
-
-def test_value_counts_every_row_of_a_batched_input():
-    from diffudf_tpu_torch.fields.siren import init_siren
-
-    spec = SirenSpec(hidden=(16,))
-    params = [{k: torch.as_tensor(v) for k, v in layer.items()}
-              for layer in init_siren(spec, np.random.default_rng(0))]
-    before = ops.value_rows
-    ops.value(params, spec, torch.zeros(5, 3))
-    ops.value(params, spec, torch.zeros(2, 4, 3), compute_dtype=torch.bfloat16)
-    assert ops.value_rows - before == 5 + 8
 
 
 def test_build_sampler_spans(tmp_path):

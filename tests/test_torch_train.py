@@ -31,7 +31,6 @@ from diffudf_tpu_torch.ops.vg import vg_op
 from diffudf_tpu_torch.ops.vgh import vgh_op
 from diffudf_tpu_torch.train import checkpoint as tckpt
 from diffudf_tpu_torch.train import losses as tl
-from diffudf_tpu_torch.autodiff import ops as tops
 from diffudf_tpu_torch.config import TrainConfig
 from diffudf_tpu_torch.data.sampling import TrainingSampler
 from diffudf_tpu_torch.train import loop as tloop
@@ -131,8 +130,21 @@ def test_loss_s2_and_siren_match_jax(which):
     _compare(t_terms, tp, j_fn, np_params)
 
 
+def _spy_value(monkeypatch):
+    """Wraps the loss module's ``value``; -> the list that records the rows
+    of each call."""
+    calls, real = [], tl.value
+
+    def spy(params, spec, x, *args, **kwargs):
+        calls.append(x.shape[:-1].numel())
+        return real(params, spec, x, *args, **kwargs)
+
+    monkeypatch.setattr(tl, "value", spy)
+    return calls
+
+
 @pytest.mark.parametrize("planted", [False, True])
-def test_loss_s2_layout_path_matches_mask_path(planted):
+def test_loss_s2_layout_path_matches_mask_path(planted, monkeypatch):
     """On a [surface | far | near] batch from the port's sampler,
     ``loss_s2(..., n_surface=)`` evaluates the surface rows alone and gives
     the terms of the mask over every row (relative 1e-6) and the gradient of
@@ -159,9 +171,9 @@ def test_loss_s2_layout_path_matches_mask_path(planted):
         leaves = [t for layer in tp for t in layer.values()]
         return terms, torch.autograd.grad(sum(terms.values()), leaves)
 
-    rows = tops.value_rows
+    calls = _spy_value(monkeypatch)
     got, got_grads = run(read, n_surface=n_on)
-    assert tops.value_rows - rows == n_on
+    assert calls == [n_on]
     want, want_grads = run(sdf)
     for k in want:
         assert float(got[k].detach()) == pytest.approx(float(want[k].detach()), rel=1e-6), k
@@ -306,18 +318,17 @@ def test_epoch_rows_do_not_alias():
     assert float(best) == float(torch.stack(seen)[:, -1].min())
 
 
-@pytest.mark.parametrize("stage", ["s1", "s2"])
-def test_epoch_counts_the_rows_of_its_batch(stage):
-    """Each epoch advances ``train.loop.surface_rows`` by its batch's
-    on-surface rows and ``autodiff.ops.value_rows`` by the rows its loss
-    evaluates on the value path: the surface rows in s2, none in s1."""
-    trainer, state, gen = _cpu_trainer()
-    sz = trainer.sampler.sizes
+@pytest.mark.parametrize("stage", ["s1", "s2", "siren"])
+def test_epoch_evaluates_the_surface_rows_alone(stage, monkeypatch):
+    """s2's loss calls the value path once a batch, on the batch's
+    on-surface rows alone; s1 and siren take the derivative paths and never
+    call it."""
+    calls = _spy_value(monkeypatch)
+    trainer, state, gen = _cpu_trainer("siren" if stage == "siren" else "tanh")
     for e in range(3):
-        rows, surface = tops.value_rows, tloop.surface_rows
         trainer.epoch(state, stage, e, gen)
-        assert tloop.surface_rows - surface == sz.on_surface
-        assert tops.value_rows - rows == (sz.on_surface if stage == "s2" else 0)
+    steps = 3 * trainer.cfg.batches_per_epoch
+    assert calls == ([trainer.sampler.sizes.on_surface] * steps if stage == "s2" else [])
 
 
 def test_train_state_files_cross_load(tmp_path):
