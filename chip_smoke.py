@@ -18,14 +18,15 @@ regularisers on the kernels, the winding number of a mesh and the MeshUDF
 sign relaxation on the card.  It
 holds every kernel of those paths against its plain torch version: K1 (f,
 grad f, Hessian), K2 (its VJP), K3a (f, grad f), K3b (its VJP), K4 (f
-alone, the march's value) and K5 (the nearest cloud point's distance).
+alone, the march's value) and K5 (the nearest cloud point's distance), and
+s2's value pair (f and its VJP, which no TPU kernel had).
 Phases, in order, each printing its seconds:
 
   1. device   — needs CUDA; prints the nvidia-smi name and power limit,
                 and whether the optional matplotlib and PIL import;
-  2. build    — nvcc (K1; K2; K3a and K3b; K4; K5) and g++ (sign voting), all
-                started together, into the package's ignored build
-                directory, with each ptxas register report;
+  2. build    — nvcc (K1; K2; K3a and K3b; K4; K5; the value pair) and g++
+                (sign voting), all started together, into the package's
+                ignored build directory, with each ptxas register report;
   3. kernel   — K1 vs ``vgh_reference`` on 65,536 points of a random-init
                 8x256 net, with the tolerances of the JAX package's Pallas
                 test (f 1e-5, g 1e-4, h6 5e-3, absolute), and its times
@@ -205,6 +206,19 @@ Phases, in order, each printing its seconds:
                 card (``DIFFUDF_RELAX_ON_DEVICE=1``, the upload included):
                 its seconds both ways, the signs that differ, and both
                 "mst" meshes' Chamfer-L1 within phase 5's limit.
+ 20. value pair — s2's value and its VJP (``ops/value_vjp.py``, no TPU
+                kernel) on the trained net at the 9,990 surface rows of a
+                batch of phase 7's sampler, with the s2 loss's own
+                cotangent: f and the gradient under phase 8's element gates
+                and phase 8's witness (max and RMS distance from the plain
+                version in float64 at most WITNESS times the float32 plain
+                version's), with each leaf's RMS distance printed beside
+                the plain version's; then its times, forward and VJP
+                apart, beside the bounds of ``benchmark/workcount.py``'s
+                count at 165 TFLOP/s and at FP32 FMA, the plain versions'
+                and the cuBLAS + autograd path's (``library_ms``); phase 7
+                also gates its launches, one forward and one VJP in each
+                eager or captured s2 epoch.
 
 Then a ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}`` line.
 Any failed phase raises, and the script exits non-zero without those two
@@ -456,11 +470,12 @@ PRODUCTS = ("kFp32", "kTf32x3", "kBf16")
 def build_phase():
     """Every native library at once: one compiler process per source."""
     from diffudf_tpu_torch.native import udf_mc
-    from diffudf_tpu_torch.ops import min_distance, value, vg, vgh
+    from diffudf_tpu_torch.ops import min_distance, value, value_vjp, vg, vgh
 
     builds = {"vgh (nvcc, K1)": vgh.build, "vgh_bwd (nvcc, K2)": vgh.build_bwd,
               "vg (nvcc, K3a + K3b)": vg.build, "value (nvcc, K4)": value.build,
-              "min_distance (nvcc, K5)": min_distance.build, "udf_mc (g++)": udf_mc.build}
+              "min_distance (nvcc, K5)": min_distance.build,
+              "value_vjp (nvcc, s2's value pair)": value_vjp.build, "udf_mc (g++)": udf_mc.build}
 
     def timed(fn):
         t0 = time.perf_counter()
@@ -724,7 +739,8 @@ def train_phase(tmp):
     the kernel launch counts of this run."""
     from diffudf_tpu_torch.cli import preprocess, train
     from diffudf_tpu_torch.data.mesh_io import load_point_cloud
-    from diffudf_tpu_torch.ops import min_distance, vg, vgh
+    from diffudf_tpu_torch.ops import min_distance, value_vjp, vg, vgh
+    from diffudf_tpu_torch.train import loop
 
     data_dir = os.path.join(tmp, "demo")
     t0 = time.perf_counter()
@@ -738,9 +754,20 @@ def train_phase(tmp):
 
     zero_counts()
     min_distance.queries = 0
+    graph = (loop.graph_captures, loop.eager_steps)
     (pipeline_s, meshes, state), stats = train.main([cfg_path])
     launches = {"K1": vgh.launches, "K2": vgh.bwd_launches, "K3a": vg.launches,
                 "K3b": vg.bwd_launches, "K5": min_distance.launches}
+    # s2's value pair runs in every s2 step, but counts its launches only at
+    # the graph's eager steps and captures (a replay counts nothing in Python)
+    s2_counted = loop.graph_captures - graph[0] + loop.eager_steps - graph[1] - stats["s1_steps"]
+    pair = (value_vjp.launches, value_vjp.bwd_launches)
+    print(f"[train] s2's value pair: {pair[0]} forward and {pair[1]} VJP launches counted in "
+          f"{s2_counted} eager or captured s2 epochs")
+    if pair != (s2_counted, s2_counted) or not s2_counted:
+        raise AssertionError(f"s2's value pair counted {pair}, not one forward and one VJP in "
+                             f"each of the {s2_counted} eager or captured s2 epochs")
+    launches["value_vjp"] = pair[0]
 
     n_s1, n_s2 = stats["s1_steps"], stats["s2_steps"]
     s1_rate, s2_rate = rates_report(stats, pipeline_s, "[train]")
@@ -749,7 +776,7 @@ def train_phase(tmp):
     extraction_k1 = 1 if stats["mesh"]["dirs_points"] > 0 else 0
     boot_steps = stats["bootstrap_epochs"] * RECIPE["batches_per_epoch"]
     want = {"K1": n_s1 + 1 + extraction_k1, "K2": n_s1, "K3a": n_s1, "K3b": n_s1,
-            "K5": 1 + boot_steps}
+            "K5": 1 + boot_steps, "value_vjp": pair[0]}
     if launches != want:
         raise AssertionError(f"launches {launches} != {want}: once per s1 step, K1 once more "
                              f"for the slice figure and {extraction_k1} by the final "
@@ -1454,10 +1481,10 @@ def gt_render_phase(tmp, data_dir):
 
 
 def zero_counts():
-    from diffudf_tpu_torch.ops import min_distance, value, vg, vgh
+    from diffudf_tpu_torch.ops import min_distance, value, value_vjp, vg, vgh
 
     vgh.launches = vgh.bwd_launches = vg.launches = vg.bwd_launches = value.launches = 0
-    min_distance.launches = 0
+    min_distance.launches = value_vjp.launches = value_vjp.bwd_launches = 0
 
 
 def read_counts():
@@ -2447,6 +2474,125 @@ def leftovers_phase(run, sphere_path, slice_stats):
     return out
 
 
+def s2_cotangent(f, weights):
+    """d(the s2 loss's terms)/df of the surface rows' values f, every row on
+    the surface: |mean f| w0 + std f w1 (Bessel), as train/losses.py::loss_s2
+    forms them."""
+    f = f.detach().double().requires_grad_(True)
+    total = weights[0] * f.mean().abs() + weights[1] * f.std()
+    return torch.autograd.grad(total, f)[0].float().contiguous()
+
+
+def value_vjp_report(params, spec, surf, fbar, tag="[value-vjp]"):
+    """s2's value pair (ops/value_vjp.py) on the rows ``surf`` with the
+    cotangent ``fbar``: f element by element and the gradient under phase
+    8's element gates against the plain versions, and phase 8's witness
+    against the plain versions in float64 (``witness``), each leaf's RMS
+    distance printed beside the float32 plain version's; then the medians of
+    20 CUDA-event times of the pair, of its forward and VJP apart, of the
+    plain versions and of the cuBLAS + autograd path the port ran before
+    (``library_ms``: ``autodiff.ops.value`` and ``torch.autograd.grad``),
+    beside the bounds of ``benchmark/workcount.py``'s count.  -> the
+    readings."""
+    from benchmark import workcount
+    from diffudf_tpu_torch.autodiff.ops import value
+    from diffudf_tpu_torch.fields.siren import flatten_params
+    from diffudf_tpu_torch.ops import value_vjp as vv
+
+    n = len(surf)
+    p64 = [{k: v.double() for k, v in layer.items()} for layer in params]
+    f_ref, saved_ref = vv.value_vjp_reference(params, spec, surf)
+    f64, saved64 = vv.value_vjp_reference(p64, spec, surf.double())
+    want_leaves = vv.value_vjp_bwd_reference(params, spec, surf, saved_ref, fbar)
+    want = flatten_params(want_leaves)
+    exact_leaves = vv.value_vjp_bwd_reference(p64, spec, surf.double(), saved64, fbar.double())
+    exact = flatten_params(exact_leaves)
+    f, saved = vv.value_vjp_fwd(params, spec, surf)
+    got_leaves = vv.value_vjp_bwd(params, spec, surf, saved, fbar)
+    got = flatten_params(got_leaves)
+    torch.cuda.synchronize()
+    failed = []
+    f_worst = float(((f - f_ref).abs() / (TOL["f"] + RTOL * f_ref.abs())).max())
+    limit = torch.cat([GTOL["K3b"] * max(float(w.abs().max()), 1.0) + RTOL * w.abs()
+                       for layer in want_leaves
+                       for w in (layer["b"].reshape(-1), layer["w"].reshape(-1))])
+    g_worst = float(((got - want).abs() / limit).max())
+    print(f"{tag} f max |kernel - plain| {float((f - f_ref).abs().max()):.3e}, worst err/limit "
+          f"{f_worst:.3f}; gradient max |kernel - plain| {float((got - want).abs().max()):.3e} "
+          f"(plain: max {float(want.abs().max()):.3e}), worst err/limit {g_worst:.3f}")
+    if not (f_worst <= 1 and g_worst <= 1):
+        failed.append("the pair outside its tolerance of the plain version")
+    witness("f", f, f_ref, f64, failed, tag)
+    mx, rms = witness("gradient", got, want, exact, failed, tag)
+    leaf_rms = {}
+    for i, (g, w, x) in enumerate(zip(got_leaves, want_leaves, exact_leaves)):
+        for k in ("w", "b"):
+            leaf_rms[f"{k}{i}"] = [float((t[k].double() - x[k]).square().mean().sqrt())
+                                   for t in (g, w)]
+    print(f"{tag} each leaf's RMS distance from float64, kernel / plain: " + ", ".join(
+        f"{k} {a:.2e}/{b:.2e} ({a / b if b else float('inf'):.2f}x)"
+        for k, (a, b) in leaf_rms.items()))
+    if failed:
+        raise AssertionError(f"{tag} " + "; ".join(failed))
+    out = {"rows": n, "f_worst": f_worst, "grad_worst": g_worst,
+           "max_abs_err": float((got - want).abs().max()), "grad_f64_max": mx,
+           "grad_f64_rms": rms, "leaf_f64_rms": leaf_rms}
+
+    leaves = [t.detach().clone().requires_grad_(True) for layer in params for t in layer.values()]
+    lib_params = [{"w": leaves[i], "b": leaves[i + 1]} for i in range(0, len(leaves), 2)]
+
+    def library():
+        return torch.autograd.grad((fbar * value(lib_params, spec, surf)).sum(), leaves)
+
+    def pair():
+        f, saved = vv.value_vjp_fwd(params, spec, surf)
+        return vv.value_vjp_bwd(params, spec, surf, saved, fbar)
+
+    def plain():
+        f, saved = vv.value_vjp_reference(params, spec, surf)
+        return vv.value_vjp_bwd_reference(params, spec, surf, saved, fbar)
+
+    flops = workcount.step_flops("s2", n, 0, spec.hidden)
+    plan = vv.vjp_plan(spec, n, torch.cuda.get_device_properties(0).multi_processor_count)
+    times = {"ms": cuda_ms(pair, 20),
+             "fwd_ms": cuda_ms(lambda: vv.value_vjp_fwd(params, spec, surf), 20),
+             "bwd_ms": cuda_ms(lambda: vv.value_vjp_bwd(params, spec, surf, saved, fbar), 20),
+             "plain_ms": cuda_ms(plain, 5), "library_ms": cuda_ms(library, 20)}
+    ms = times["ms"]
+    # bound_ms: the operations at workcount's 3xTF32 rate, as the other rows'
+    out.update(times, tile=plan.tile, grid=plan.grid, splits=plan.splits,
+               tflops=flops / (ms * 1e-3) / 1e12, bound_ms=1e3 * flops / workcount.PEAK_FLOPS,
+               bound_by="operations", fp32_bound_ms=1e3 * flops / PEAK_FP32_FLOPS,
+               design_bytes=plan.bytes_moved)
+    print(f"{tag} at {n} rows ({plan.n_tiles} tiles of {plan.tile} on {plan.grid} CTAs, W-bar in "
+          f"{plan.splits} runs): the pair {ms:.4f} ms (forward {times['fwd_ms']:.4f}, VJP "
+          f"{times['bwd_ms']:.4f}); plain {times['plain_ms']:.4f} ms; cuBLAS + autograd "
+          f"(library) {times['library_ms']:.4f} ms; {flops / 1e12:.5f} TFLOP, "
+          f"{out['tflops']:.1f} TFLOP/s; bound 3xTF32 {out['bound_ms']:.4f} ms "
+          f"({out['bound_ms'] / ms:.1%} of it), FP32 FMA {out['fp32_bound_ms']:.4f} ms "
+          f"({out['fp32_bound_ms'] / ms:.1%}); the design moves "
+          f"{plan.bytes_moved / 1e9:.4f} GB ({1e3 * plan.bytes_moved / PEAK_BYTES_PER_S:.3f} ms)")
+    return out
+
+
+@phase("value pair")
+def value_vjp_phase(params, cfg_path):
+    """s2's value pair on the trained net at the 9,990 surface rows of a
+    batch of the run's sampler, with the s2 loss's own cotangent
+    (``value_vjp_report``)."""
+    from diffudf_tpu_torch.cli import train
+    from diffudf_tpu_torch.config import TrainConfig
+    from diffudf_tpu_torch.ops.value_vjp import value_vjp_reference
+
+    cfg = TrainConfig.from_json(cfg_path)
+    sampler, _, _ = train.build_sampler(cfg)  # the run's oracle cache: no rebuild
+    pts, _, _ = sampler.sample(torch.Generator(device="cuda").manual_seed(7))
+    surf = pts[:sampler.sizes.on_surface].contiguous()
+    spec = cfg.network.to_spec()
+    fbar = s2_cotangent(value_vjp_reference(params, spec, surf)[0], cfg.loss_s2_weights)
+    return value_vjp_report(params, spec, surf, fbar)
+
+
 KERNELS = {
     "K1": ("vgh", "diffudf_tpu_torch/csrc/vgh.cu", "diffudf_tpu/ops/pallas_vgh.py:55 (_vgh_kernel)"),
     "K2": ("vgh_bwd", "diffudf_tpu_torch/csrc/vgh_bwd.cu",
@@ -2492,6 +2638,7 @@ def main():
         dp = dp_train_phase(tmp, run)
         serving = sharded_serving_phase(tmp, model_path, run, render, pc)
         left = leftovers_phase(run, model_path, stats)
+        pair = value_vjp_phase(run["params"], run["cfg_path"])
     aux = {k: left["regularisers"][p]["launches"][k]
            for p, ks in (("total_variation", ("K1", "K2")), ("grad_consistency", ("K3a", "K3b")))
            for k in ks}
@@ -2571,6 +2718,10 @@ def main():
           f"{json.dumps(enh)}")
     print(f"[total] phase 19, the regularisers, winding number and relaxation: "
           f"{json.dumps(left)}")
+    rows.append({"name": "value_vjp", "route": "cuda",
+                 "source": "diffudf_tpu_torch/csrc/value_vjp.cu",
+                 "replaces": "none: the JAX package leaves s2's value path to XLA",
+                 "launches_by_path": {"train": run["launches"]["value_vjp"]}, **pair})
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

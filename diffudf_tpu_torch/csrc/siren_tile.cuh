@@ -21,8 +21,9 @@
 //    parts; tile_product (every kernel but K1, whose FP32 FMA product is in
 //    siren_fwd.cuh) multiplies it by W as mma.sync.m16n8k8 TF32
 //    products, lo*hi + hi*lo + hi*hi (3xTF32: float32 accuracy on the tensor
-//    cores), B fragments by cp.async from L2, each two-k-step partial added
-//    into float32 registers (the tensor cores' own float32 sum truncates).
+//    cores), B fragments by cp.async from L2, each partial of kPromote k-steps
+//    (two unless the caller asks for one) added into float32 registers (the
+//    tensor cores' own float32 sum truncates).
 //    K4's bf16 product (mma_bf16) is in siren_fwd.cuh.
 
 #pragma once
@@ -193,12 +194,14 @@ __global__ void frag_kernel(const float* __restrict__ wh, int n_mm, int n_orient
 
 // acc (R*T x 32 columns of this warp) = A (R*T x h, its TF32 hi and lo
 // parts in shared memory, row stride lda) times B (h x h, fragments of
-// frag_kernel), in 3xTF32.  The lane's fragments of k-pair p + kRing are
+// frag_kernel), in 3xTF32, the tensor cores' sum of every kPromote k-steps
+// (1 or 2) added into float32.  The lane's fragments of k-pair p + kRing are
 // requested into the slot of k-pair p once its products are under way.
-template <int MT, int kRing>
+template <int MT, int kRing, int kPromote = 2>
 __device__ __forceinline__ void tile_product(float* acc, const float* a_hi, const float* a_lo,
                                              int lda, const float4* __restrict__ frag,
                                              float4* ring, int h, int warp, int lane) {
+  static_assert(kPromote == 1 || kPromote == 2, "promote every one or two k-steps");
   const int kp = h / 16, nt = h / 8;
   const float4* src = frag + static_cast<int64_t>(4 * warp) * 32 + lane;
   auto fetch = [&](int p) {
@@ -238,12 +241,14 @@ __device__ __forceinline__ void tile_product(float* acc, const float* a_hi, cons
         const uint32_t at = a_at + 4 * (16 * mt * lda + 16 * p + 8 * ks);
         ldmatrix_x4(ah, at);
         ldmatrix_x4(al, at + lo_off);
-        mma3x4(tmp, ah, al, bh[ks], bl[ks], ks == 0);
-      }
+        mma3x4(tmp, ah, al, bh[ks], bl[ks], ks % kPromote == 0);
+        if ((ks + 1) % kPromote == 0) {
 #pragma unroll
-      for (int u = 0; u < 4; ++u) {
+          for (int u = 0; u < 4; ++u) {
 #pragma unroll
-        for (int c = 0; c < 4; ++c) acc[(mt * 4 + u) * 4 + c] += tmp[u][c];
+            for (int c = 0; c < 4; ++c) acc[(mt * 4 + u) * 4 + c] += tmp[u][c];
+          }
+        }
       }
     }
     fetch(p + kRing);  // into the slot just read

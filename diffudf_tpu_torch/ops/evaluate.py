@@ -68,21 +68,23 @@ def field_fns(spec: SirenSpec):
 
 
 def autograd_ops(spec: SirenSpec):
-    """-> (vg_op, vgh_op), the losses' (f, ∇f) and (f, ∇f, packed H)
-    functions differentiable in the params (the Trainer's s1 loss, the
-    auxiliary regularisers).
+    """-> (vg_op, vgh_op, value_op), the losses' (f, ∇f), (f, ∇f, packed H)
+    and f functions differentiable in the params (the Trainer's s1 and s2
+    losses, the auxiliary regularisers).
 
     For a net the kernels take (:func:`.kernel_io.kernel_spec_ok`) they are
-    :func:`.vg.vg_op` (K3a + K3b) and :func:`.vgh.vgh_op` (K1 + K2), which
-    run their plain versions on a CPU tensor; for every other net (None,
-    None): the caller's plain Taylor-mode path.
+    :func:`.vg.vg_op` (K3a + K3b), :func:`.vgh.vgh_op` (K1 + K2) and
+    :func:`.value_vjp.value_vjp_op` (s2's value and its VJP), which run
+    their plain versions on a CPU tensor; for every other net (None, None,
+    None): the caller's plain path.
     """
     if kernel_spec_ok(spec):
+        from .value_vjp import value_vjp_op
         from .vg import vg_op
         from .vgh import vgh_op
 
-        return vg_op, vgh_op
-    return None, None
+        return vg_op, vgh_op, value_vjp_op
+    return None, None, None
 
 
 def evaluate_field(

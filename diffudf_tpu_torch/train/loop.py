@@ -16,7 +16,9 @@ multiple of 32, at most 256) the s1 loss runs the fused ops: K1 + K2 (``ops.vgh.
 rows and K3a + K3b (``ops.vg.vg_op``) on the others; on a CPU tensor those
 ops run their plain versions.  Any other net takes the plain Taylor-mode
 path, as the JAX package sends it to XLA.  The s2 loss evaluates the value
-path on the leading on-surface rows alone, the only rows it reads.
+path on the leading on-surface rows alone, the only rows it reads: on a
+net the kernels take through ``ops.value_vjp.value_vjp_op`` (the value and
+its VJP as one kernel pair), else through ``autodiff.ops.value``.
 
 Optimizer: Adam with torch-default hyperparameters (β=(0.9, 0.999),
 ε=1e-8), optax's ``scale_by_adam`` written out, with the learning rate
@@ -34,8 +36,10 @@ state.  The first epoch of a new key (stage, batch shapes,
 ``batches_per_epoch``, the state's tensors) runs the same step eagerly on a
 side stream, the next captures it, and later epochs replay it.  A
 captured body runs its Python once, at capture, so it counts nothing in
-Python: s1, whose kernels count their launches at call time, takes the
-eager step, as do CPU tensors and a process group.
+Python on a replay: s2's value op (``ops.value_vjp``) counts its launches
+at the eager step and at the capture alone.  s1, whose kernels' launches
+are read as one a step, takes the eager step, as do CPU tensors and a
+process group.
 
 Random keys: the state carries a (2,) uint32 key.  Each chunk seeds the
 sampling generator from it and replaces it by the next key of a fixed host
@@ -243,7 +247,7 @@ class Trainer:
         self.cfg = cfg
         self.device = sampler.device
         self.group = group if group is not None else single(sampler.device)
-        self._vg_op, self._vgh_op = autograd_ops(spec)
+        self._vg_op, self._vgh_op, self._value_op = autograd_ops(spec)
         self._graph = None  # the graphed path's _StepGraph
         self.chunk_seconds = []  # (lo, hi, stage, seconds) per chunk of the last run
         self.last_swap_epoch = None  # the epoch the last run swapped samplers at
@@ -309,7 +313,7 @@ class Trainer:
             group = self.group if self.group.backend is not None else None
             return loss_s2(params, self.spec, points, normals, sdf,
                            cfg.loss_s2_weights, cfg.alpha, group=group,
-                           n_surface=n_surface)
+                           n_surface=n_surface, value_fn=self._value_op)
         if stage == "siren":
             return loss_siren(params, self.spec, points, normals, sdf, cfg.loss_weights)
         raise ValueError(stage)
@@ -425,8 +429,8 @@ class Trainer:
 
     def _graphable(self, stage: str) -> bool:
         """Whether the epoch runs on the graphed path: one CUDA device, no
-        process group, and not s1, whose kernels count their launches in
-        Python (a captured body counts nothing there; module docstring)."""
+        process group, and not s1, whose kernels' launches are read as one a
+        step (a captured body counts nothing on a replay; module docstring)."""
         return (self.device.type == "cuda" and self.group.backend is None
                 and stage != "s1")
 

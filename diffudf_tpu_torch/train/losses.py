@@ -119,9 +119,12 @@ def loss_s1(params, spec, points, gt_normals, gt_sdf, weights, alpha,
 
 
 def loss_s2(params, spec, points, gt_normals, gt_sdf, weights, alpha, group=None,
-            n_surface=None):
-    """Stage-2 polish: |mean| and std of the on-surface field values, through
-    the exact ``torch.sin`` value path (``autodiff.ops.value``).
+            n_surface=None, value_fn=None):
+    """Stage-2 polish: |mean| and std of the on-surface field values.
+
+    ``value_fn`` (``ops.value_vjp.value_vjp_op``) computes f of the rows;
+    without it the exact ``torch.sin`` value path (``autodiff.ops.value``)
+    runs.
 
     ``n_surface``: count of leading on-surface rows (the sampler's batch
     layout).  When given, only those rows are evaluated: the loss reads no
@@ -138,7 +141,7 @@ def loss_s2(params, spec, points, gt_normals, gt_sdf, weights, alpha, group=None
         points, gt_sdf = points[:n_surface], gt_sdf[:n_surface]
     udf = gt_sdf[:, 0]
     on_surf = udf == 0
-    f = value(params, spec, points)
+    f = (value_fn or value)(params, spec, points)
     zero = torch.zeros_like(f)
 
     n_on = torch.sum(on_surf)

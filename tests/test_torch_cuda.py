@@ -16,6 +16,7 @@ import torch
 from diffudf_tpu_torch.fields.siren import SirenSpec, init_siren, params_from_jax
 from diffudf_tpu_torch.ops import min_distance as tmd
 from diffudf_tpu_torch.ops import value as tval
+from diffudf_tpu_torch.ops import value_vjp as tvv
 from diffudf_tpu_torch.ops import vg as tg
 from diffudf_tpu_torch.ops import vgh as tv
 
@@ -180,6 +181,62 @@ def test_backward_kernel_is_bit_reproducible(kernel):
     second = fn(params, spec, x, c)
     torch.cuda.synchronize()
     for a, b in zip(first, second):
+        assert torch.equal(a["w"], b["w"]) and torch.equal(a["b"], b["b"])
+
+
+# s2's value pair (ops/value_vjp.py) against its plain versions: f element by
+# element within TOL["f"] + RTOL * |plain|, the gradient under K3b's gate.
+@pytest.mark.cuda
+@pytest.mark.parametrize("hidden,n", [
+    ((256,) * 8, 9990),  # a training batch's surface rows: 125 tiles of 80
+    ((256,) * 8, 4999),  # ragged, tiles of 16
+    ((64,) * 3, 1001),
+    ((32,) * 4, 1001),   # one warp a CTA
+    ((160,) * 3, 333),   # a second W-bar block, 32 of its 128 used
+    ((64,) * 3, 0),      # a data-parallel rank with no surface rows
+    ((64,), 1001),       # one hidden layer: no hidden product (n_mm = 0)
+])
+def test_value_vjp_kernels_match_plain_version(hidden, n):
+    """The forward and its VJP against value_vjp_reference and
+    value_vjp_bwd_reference on the card; one launch each (none at N = 0,
+    where the gradient is zero)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the pair has no CPU mode")
+    spec, params, x, cot = _case(hidden, n)
+    fbar = cot[:, 0].contiguous()
+    before = (tvv.launches, tvv.bwd_launches)
+    f, saved = tvv.value_vjp_fwd(params, spec, x)
+    got = tvv.value_vjp_bwd(params, spec, x, saved, fbar)
+    torch.cuda.synchronize()
+    assert (tvv.launches, tvv.bwd_launches) == (before[0] + (n > 0), before[1] + (n > 0))
+    f_ref, saved_ref = tvv.value_vjp_reference(params, spec, x)
+    assert f.shape == f_ref.shape
+    if n:
+        assert float(((f - f_ref).abs() / (TOL["f"] + RTOL * f_ref.abs())).max()) <= 1.0
+    want = tvv.value_vjp_bwd_reference(params, spec, x, saved_ref, fbar)
+    if n:
+        assert _grad_errors(got, want, GTOL["vg_bwd"]) <= 1.0
+    else:
+        assert all(float(g[k].abs().max()) == 0.0 for g in got for k in ("w", "b"))
+
+
+@pytest.mark.cuda
+def test_value_vjp_kernels_are_bit_reproducible():
+    """Two launches of the pair on the same input give the same bits: one
+    writer per output element, per-CTA partials added in a fixed order, no
+    float atomics."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    spec, params, x, cot = _case((256,) * 8, 9990, seed=4)
+    fbar = cot[:, 0].contiguous()
+    runs = []
+    for _ in range(2):
+        f, saved = tvv.value_vjp_fwd(params, spec, x)
+        runs.append((f, tvv.value_vjp_bwd(params, spec, x, saved, fbar)))
+    torch.cuda.synchronize()
+    (f1, g1), (f2, g2) = runs
+    assert torch.equal(f1, f2)
+    for a, b in zip(g1, g2):
         assert torch.equal(a["w"], b["w"]) and torch.equal(a["b"], b["b"])
 
 

@@ -27,6 +27,7 @@ from diffudf_tpu_torch import config as tcfg
 from diffudf_tpu_torch.cli import preprocess as tpre
 from diffudf_tpu_torch.cli import train as tcli
 from diffudf_tpu_torch.fields.siren import SirenSpec, init_siren
+from diffudf_tpu_torch.ops import value_vjp as tvv
 from diffudf_tpu_torch.ops.vg import vg_op
 from diffudf_tpu_torch.ops.vgh import vgh_op
 from diffudf_tpu_torch.train import checkpoint as tckpt
@@ -131,15 +132,20 @@ def test_loss_s2_and_siren_match_jax(which):
 
 
 def _spy_value(monkeypatch):
-    """Wraps the loss module's ``value``; -> the list that records the rows
-    of each call."""
-    calls, real = [], tl.value
+    """Wraps the loss module's ``value`` and the forward of the kernels'
+    value op (``ops.value_vjp.value_vjp_fwd``, the Trainer's s2 value path on
+    a net the kernels take); -> the list that records the rows of each
+    call."""
+    calls = []
 
-    def spy(params, spec, x, *args, **kwargs):
-        calls.append(x.shape[:-1].numel())
-        return real(params, spec, x, *args, **kwargs)
+    def wrap(real):
+        def spy(params, spec, x, *args, **kwargs):
+            calls.append(x.shape[:-1].numel())
+            return real(params, spec, x, *args, **kwargs)
+        return spy
 
-    monkeypatch.setattr(tl, "value", spy)
+    monkeypatch.setattr(tl, "value", wrap(tl.value))
+    monkeypatch.setattr(tvv, "value_vjp_fwd", wrap(tvv.value_vjp_fwd))
     return calls
 
 
